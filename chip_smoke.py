@@ -7,18 +7,23 @@ Phases (any failure exits non-zero and prints no result line):
 2. build every CUDA kernel of the port with ``nvcc`` (one process per
    source, started together) and print the build time;
 3. hold every kernel against its plain PyTorch version on the card, at
-   the shapes the main path gives it plus ragged and large ones, and
-   time kernel, plain version and the PyTorch library call;
+   the shapes the main path gives it plus ragged and large ones: K1 in
+   float32 and float64, accumulate and init, over the DenseNet-40 tree
+   in one call, a ragged tree (an unaligned view, an empty leaf), single
+   leaves, a DenseNet-121-sized tree and a tree longer than the launch
+   table; then time kernel, plain version and the one PyTorch call of the
+   same function (``torch._foreach_add_``), and K1's device time;
 4. the main path: the ``cifar10_densenet_mu0_01_K0`` recipe (DenseNet-40-12
    on CIFAR-10, full width, batch 32) with ``remat=False, hvp_micro=2,
    augment=False``, built through the config driver and run for 5
    ``train_step``s; the kernel launch counts are set to 0 just before
-   and read just after;
+   and read just after, and each step must launch K1 once per
+   micro-batched accumulate, ``(pow_iters + 2) * hvp_micro`` times;
 5. one more step under ``torch.profiler``: the device's busy share and
    the kernels that take the time;
 6. the card against the CPU: HVP and vGHv at the trained weights,
-   float32 (micro-batched, through K1) and float64 on the card vs
-   float64 with the port on the CPU;
+   micro-batched through K1 in float32 and float64, and float64 on the
+   first micro-batch, on the card vs float64 with the port on the CPU;
 7. a ``{"kernels": [...]}`` line, the card's name and power limit, and
    last the ``{"ok": true, "device": ...}`` line.
 
@@ -40,9 +45,13 @@ import torch
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12  # float32 outside the tensor cores
 STEPS = 5
-# kernel vs plain: the kernel rounds as fl(acc + fl(alpha * delta)), like
-# the plain version, so the two should agree bit for bit; allow 1 ulp
-KERNEL_RTOL = torch.finfo(torch.float32).eps
+# the parameter tensors and parameters of torchvision's densenet121 (the
+# chest-x-ray backbone), for a K1 tree of that size
+DN121_LEAVES = 364
+DN121_VALUES = 7_978_856
+# kernel vs plain: the kernel rounds as fl(acc + fl(alpha * delta)) (and as
+# fl(alpha * delta) under init), like the plain version, so the two should
+# agree bit for bit; phase 3 allows 1 ulp of the dtype
 # card vs CPU float64, relative error in the 2-norm.  Float32: the
 # gradient of the first layers is a small difference of large sums (the
 # BatchNorm backward subtracts the projections), so float32 keeps only
@@ -115,69 +124,219 @@ def densenet40_leaf_shapes():
     return [tuple(p.shape) for p in m.parameters()]
 
 
+def densenet121_sized_leaves(seed=1226):
+    """``DN121_LEAVES`` leaf sizes that sum to ``DN121_VALUES`` (the parameter
+    tensors and parameters of torchvision's ``densenet121``), drawn
+    log-normal from ``seed``: a few large convolution leaves and many small
+    ones, as in the real tree."""
+    rng = np.random.default_rng(seed)
+    w = rng.lognormal(sigma=2.0, size=DN121_LEAVES)
+    sizes = np.maximum(1, np.floor(w / w.sum() * DN121_VALUES)).astype(np.int64)
+    sizes[np.argmax(sizes)] += DN121_VALUES - sizes.sum()
+    return [(int(n),) for n in sizes]
+
+
+def _tree(shapes, dtype, g, unaligned=()):
+    """One tensor per shape on the card; the leaves whose index is in
+    ``unaligned`` are views at offset 1 (the kernel's scalar path)."""
+    def leaf(i, shape):
+        n = math.prod(shape)
+        t = torch.randn(n + 1, device="cuda", dtype=dtype, generator=g)
+        return (t[1:] if i in unaligned else t[:n]).view(shape)
+    return [leaf(i, s) for i, s in enumerate(shapes)]
+
+
+def _flat_views(shapes, dtype, g):
+    """Leaves laid out as ``curvature._accumulate`` lays out its accumulator:
+    views into one buffer at offsets padded to 4 values."""
+    from optwboundeigenval_tpu_torch.ops.curvature import _flat_like
+
+    tree = _flat_like({str(i): torch.empty(s, device="cuda", dtype=dtype)
+                       for i, s in enumerate(shapes)})
+    for t in tree.values():
+        t.copy_(torch.randn(t.shape, device="cuda", dtype=dtype, generator=g))
+    return list(tree.values())
+
+
+def host_us(fn, reps=200):
+    """Host time per call of ``fn`` (perf_counter; what the device does is
+    not waited for)."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = 1e6 * (time.perf_counter() - t0) / reps
+    torch.cuda.synchronize()
+    return us
+
+
+def wall_ms(fns, reps, rounds=5):
+    """Per name, the median, least and most of ``rounds`` readings of
+    :func:`cuda_time_ms` over ``reps`` back-to-back calls, the functions
+    taken in turns so that the host's noise falls on each alike."""
+    readings = {k: [] for k in fns}
+    for _ in range(rounds):
+        for k, fn in fns.items():
+            readings[k].append(cuda_time_ms(fn, reps))
+    return {k: (float(np.median(v)), min(v), max(v)) for k, v in readings.items()}
+
+
+def show(wall):
+    return ", ".join(f"{k} {m:.4f} ({lo:.4f}-{hi:.4f})" for k, (m, lo, hi) in wall.items())
+
+
+def show_us(us, bound_us=None):
+    if us is None:
+        return "not measured"
+    if bound_us is None:
+        return f"{us:.2f} us"
+    return f"{us:.2f} us, {100 * bound_us / us:.1f}% of the {bound_us:.2f} us bound"
+
+
+def device_us_per_launch(fn, reps=20):
+    """K1's device time per launch from ``torch.profiler`` (None when the
+    profiler records no device time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and "axpy_tree" in e.key]
+    count = sum(e.count for e in evs)
+    if not count:
+        return None
+    return sum(e.self_device_time_total for e in evs) / count
+
+
 def phase_kernel_check(leaf_shapes):
-    """K1 against its plain version on the card; returns the kernel entry
-    of the kernels line (without ``launches``)."""
+    """K1 against its plain version on the card, in float32 and float64,
+    accumulate and init, on whole trees in one call; then its timings.
+    Returns the kernel entry of the kernels line (without ``launches``)."""
     from optwboundeigenval_tpu_torch.ops import pallas_kernels as pk
 
-    dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(1226)
-    alpha = torch.tensor(0.5 + 1.0 / 3.0, device=dev)
-    cases = [(f"leaf{tuple(s)}", s) for s in leaf_shapes]
-    cases += [("n=1", (1,)), ("n=3", (3,)), ("n=1000", (1000,)),
-              ("(7,13)", (7, 13)), ("flat 16M", (1 << 24,))]
-    max_err = 0.0
-    for name, shape in cases + [("n=1000 unaligned", None)]:
-        if shape is None:  # scalar (unaligned) path: a view at offset 1
-            acc = torch.randn(1001, device=dev, generator=g)[1:]
-            delta = torch.randn(1001, device=dev, generator=g)[1:]
-        else:
-            acc = torch.randn(shape, device=dev, generator=g)
-            delta = torch.randn(shape, device=dev, generator=g)
-        want = pk.axpy_accumulate_plain(acc.clone(), delta, alpha)
-        ptr = acc.data_ptr()
-        pk.axpy_accumulate(acc, delta, alpha)
-        torch.cuda.synchronize()
-        if acc.data_ptr() != ptr:
-            fail(f"axpy_accumulate {name}: not in place")
-        err = (acc - want).abs()
-        if not bool((err <= KERNEL_RTOL * want.abs()).all()):
-            fail(f"axpy_accumulate {name}: max abs err {err.max().item():.3e} "
-                 f"over 1 ulp")
-        max_err = max(max_err, err.max().item())
-    log(f"axpy_accumulate: {len(cases) + 1} shapes match the plain version, "
-        f"max abs err {max_err:.3e} (tolerance 1 ulp)")
+    g = torch.Generator(device="cuda").manual_seed(1226)
+    cap = pk.TABLE_CAPACITY
+    dn121 = densenet121_sized_leaves()
+    over = [(1 + i % 300,) for i in range(2 * cap + 452)]
+    ragged = [(1000,), (0,), (7, 13), (3,), (1,), (12, 1, 3, 3), (2049,)]
+    cases = [
+        ("densenet40 tree", lambda dt: _tree(leaf_shapes, dt, g)),
+        ("densenet40 flat-buffer views", lambda dt: _flat_views(leaf_shapes, dt, g)),
+        ("ragged: unaligned view + empty leaf", lambda dt: _tree(ragged, dt, g, (0,))),
+        ("densenet121-sized tree", lambda dt: _tree(dn121, dt, g)),
+        (f"{len(over)} leaves, above capacity", lambda dt: _tree(over, dt, g, (7,))),
+    ]
+    for shape in [(1,), (3,), (1000,), (7, 13), (1 << 24,)]:
+        cases.append((f"single leaf {shape}", lambda dt, s=shape: _tree([s], dt, g)[0]))
+    cases.append(("single leaf (1000,) unaligned",
+                  lambda dt: _tree([(1000,)], dt, g, (0,))[0]))
+    max_err, checked = 0.0, 0
+    for dtype in (torch.float32, torch.float64):
+        eps = torch.finfo(dtype).eps
+        alpha = torch.tensor(0.5 + 1.0 / 3.0, device="cuda", dtype=dtype)
+        for name, make in cases:
+            for init in (False, True):
+                acc, delta = make(dtype), make(dtype)
+                accs = [acc] if isinstance(acc, torch.Tensor) else acc
+                deltas = [delta] if isinstance(delta, torch.Tensor) else delta
+                want = pk.axpy_accumulate_plain([a.clone() for a in accs], deltas,
+                                                alpha, init=init)
+                if init:
+                    for a in accs:
+                        a.fill_(float("nan"))  # the kernel must never read them
+                ptrs = [a.data_ptr() for a in accs]
+                before = pk.axpy_accumulate.launches
+                out = pk.axpy_accumulate(acc, delta, alpha, init=init)
+                torch.cuda.synchronize()
+                label = f"axpy_accumulate {name}, {dtype}, {'init' if init else 'accumulate'}"
+                launched = pk.axpy_accumulate.launches - before
+                expect = -(-sum(a.numel() > 0 for a in accs) // cap)
+                if out is not acc or [a.data_ptr() for a in accs] != ptrs:
+                    fail(f"{label}: not in place")
+                if launched != expect:
+                    fail(f"{label}: {launched} launches, expected {expect}")
+                for a, w in zip(accs, want):
+                    err = (a - w).abs()
+                    if not bool((err <= eps * w.abs()).all()):
+                        fail(f"{label}: max abs err {err.max().item():.3e} over 1 ulp")
+                    if err.numel():
+                        max_err = max(max_err, err.max().item())
+                checked += 1
+    log(f"axpy_accumulate: {checked} calls ({len(cases)} trees and leaves x float32, "
+        f"float64 x accumulate, init) match the plain version, max abs err "
+        f"{max_err:.3e} (tolerance 1 ulp); the {len(over)}-leaf tree took "
+        f"{-(-len(over) // cap)} launches")
 
-    # timing at the main path's unit of work: one full-model accumulate,
-    # one wrapper call per leaf (the 2.1 MB fit in L2, as in the step)
-    accs = [torch.randn(s, device=dev, generator=g) for s in leaf_shapes]
-    deltas = [torch.randn(s, device=dev, generator=g) for s in leaf_shapes]
+    # timing at the main path's unit of work: one full-model accumulate of
+    # DenseNet-40 in float32 (2.1 MB, in L2 as in the step), back to back
+    alpha = torch.tensor(0.5 + 1.0 / 3.0, device="cuda")
     a = float(alpha)
+    accs, deltas = _tree(leaf_shapes, torch.float32, g), _tree(leaf_shapes, torch.float32, g)
     n = sum(t.numel() for t in accs)
-    reps = 200
-    kernel_ms = cuda_time_ms(lambda: [pk.axpy_accumulate(x, d, alpha)
-                                      for x, d in zip(accs, deltas)], reps)
-    plain_ms = cuda_time_ms(lambda: [pk.axpy_accumulate_plain(x, d, alpha)
-                                     for x, d in zip(accs, deltas)], reps)
-    library_ms = cuda_time_ms(lambda: [x.add_(d, alpha=a)
-                                       for x, d in zip(accs, deltas)], reps)
-    foreach_ms = cuda_time_ms(lambda: torch._foreach_add_(accs, deltas, alpha=a), reps)
+    kernel = lambda: pk.axpy_accumulate(accs, deltas, alpha)
+    foreach = lambda: torch._foreach_add_(accs, deltas, alpha=a)
+    wall = wall_ms({"kernel": kernel, "_foreach_add_": foreach,
+                    "plain": lambda: pk.axpy_accumulate_plain(accs, deltas, alpha),
+                    "add_ per leaf": lambda: [x.add_(d, alpha=a) for x, d in zip(accs, deltas)]},
+                   reps=200)
+    kernel_ms, library_ms, plain_ms = (wall[k][0] for k in ("kernel", "_foreach_add_", "plain"))
+    dn40_us = device_us_per_launch(kernel)
+    # where the wrapper's host time goes: its checks, the contiguity and
+    # pointer reads of _launch, the table packing, and the ctypes launch
+    T = torch.Tensor
+    reads = lambda: (list(map(T.data_ptr, accs)), list(map(T.data_ptr, deltas)),
+                     list(map(T.numel, accs)))
+    pa, pd, ns = reads()
+    [(rows, chunks)] = pk.pack_tables(pa, pd, ns, 4)
+    fn, stream = pk._kernels()[torch.float32], torch.cuda.current_stream().cuda_stream
+    host = {
+        "wrapper": host_us(kernel),
+        "checks": host_us(lambda: pk._check(accs, deltas, alpha)),
+        "contiguity": host_us(lambda: all(map(T.is_contiguous, accs + deltas))),
+        "pointers": host_us(reads),
+        "packing": host_us(lambda: pk.pack_tables(pa, pd, ns, 4)),
+        "launch": host_us(lambda: fn(rows.ctypes.data, len(rows), chunks,
+                                     alpha.data_ptr(), 0, stream)),
+        "_foreach_add_": host_us(foreach),
+    }
     nbytes, nflops = 12 * n, 2 * n
     bound_ms = 1e3 * max(nbytes / H100_BYTES_PER_S, nflops / H100_FP32_FLOPS)
     log(f"axpy_accumulate per full-model accumulate ({len(accs)} leaves, {n} values, "
-        f"{nbytes} B): kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"add_ per leaf {library_ms:.4f} ms, _foreach_add_ {foreach_ms:.4f} ms, "
-        f"bound {bound_ms:.6f} ms (bytes)")
+        f"{nbytes} B, one call), wall ms per call, median (min-max) of 5: {show(wall)}; "
+        f"kernel device time per launch {show_us(dn40_us)}, bound {bound_ms:.6f} ms (bytes)")
+    log("axpy_accumulate host us per densenet40 call: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in host.items()))
 
-    big_a = torch.randn(1 << 24, device=dev, generator=g)
-    big_d = torch.randn(1 << 24, device=dev, generator=g)
-    k16 = cuda_time_ms(lambda: pk.axpy_accumulate(big_a, big_d, alpha), 50)
-    p16 = cuda_time_ms(lambda: pk.axpy_accumulate_plain(big_a, big_d, alpha), 50)
-    l16 = cuda_time_ms(lambda: big_a.add_(big_d, alpha=a), 50)
-    b16 = 1e3 * 12 * (1 << 24) / H100_BYTES_PER_S
-    log(f"axpy_accumulate flat 16M (201 MB moved): kernel {k16:.4f} ms "
-        f"({12 * (1 << 24) / (k16 * 1e-3) / 1e9:.1f} GB/s), plain {p16:.4f} ms, add_ {l16:.4f} ms, "
-        f"bound {b16:.4f} ms")
+    # the DenseNet-121-sized tree: 64 MB of acc and delta, more than L2
+    accs = _tree(dn121, torch.float32, g)
+    deltas = _tree(dn121, torch.float32, g)
+    n121 = sum(t.numel() for t in accs)
+    kernel = lambda: pk.axpy_accumulate(accs, deltas, alpha)
+    wall121 = wall_ms({"kernel": kernel,
+                       "_foreach_add_": lambda: torch._foreach_add_(accs, deltas, alpha=a)},
+                      reps=50)
+    dn121_us = device_us_per_launch(kernel)
+    dn121_bound_us = 1e6 * 12 * n121 / H100_BYTES_PER_S
+    log(f"axpy_accumulate densenet121-sized tree ({len(accs)} leaves, {n121} values, "
+        f"{12 * n121} B): kernel device time per launch {show_us(dn121_us, dn121_bound_us)}; "
+        f"wall ms per call, median (min-max) of 5: {show(wall121)}")
+
+    big_a = torch.randn(1 << 24, device="cuda", generator=g)
+    big_d = torch.randn(1 << 24, device="cuda", generator=g)
+    kernel = lambda: pk.axpy_accumulate(big_a, big_d, alpha)
+    wall16 = wall_ms({"kernel": kernel,
+                      "plain": lambda: pk.axpy_accumulate_plain(big_a, big_d, alpha),
+                      "add_": lambda: big_a.add_(big_d, alpha=a)}, reps=50)
+    flat_us = device_us_per_launch(kernel)
+    b16 = 1e6 * 12 * (1 << 24) / H100_BYTES_PER_S
+    aim = "" if flat_us is None or b16 / flat_us >= 0.8 else ", BELOW the 80% aim"
+    log(f"axpy_accumulate flat 16M (201 MB moved): kernel device time per launch "
+        f"{show_us(flat_us, b16)}{aim}; wall ms per call, median (min-max) of 5: {show(wall16)}")
     return {
         "name": "axpy_accumulate",
         "route": "cuda",
@@ -189,6 +348,14 @@ def phase_kernel_check(leaf_shapes):
         "bound_ms": bound_ms,
         "bound_by": "bytes",
         "library_ms": library_ms,
+        "library_call": "torch._foreach_add_",
+        "device_us": dn40_us,
+        "dn121_device_us": dn121_us,
+        "dn121_bound_us": dn121_bound_us,
+        "dn121_ms": wall121["kernel"][0],
+        "dn121_library_ms": wall121["_foreach_add_"][0],
+        "flat16m_device_us": flat_us,
+        "flat16m_bound_us": b16,
     }
 
 
@@ -210,7 +377,6 @@ def phase_slice(device="cuda", steps=STEPS):
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
     if device == "cuda":
         torch.cuda.reset_peak_memory_stats()
-    leaves = len(trainer.params)
     pk.axpy_accumulate.launches = 0
     batch = None
     for i in range(steps):
@@ -232,9 +398,10 @@ def phase_slice(device="cuda", steps=STEPS):
         if not (m["g"] > 0 and m["gradg_norm"] > 0):
             fail(f"step {i}: the vGHv pass did not run (g {m['g']}, "
                  f"gradg_norm {m['gradg_norm']})")
-        # every accumulate of the step goes through K1: gradient, each
-        # power-iteration HVP and the vGHv pass, 2 micro-batches each
-        want = (m["pow_iters"] + 2) * trainer.hvp_micro * leaves
+        # every accumulate of the step goes through K1, one launch per
+        # micro-batch over all leaves: gradient, each power-iteration HVP
+        # and the vGHv pass
+        want = (m["pow_iters"] + 2) * trainer.hvp_micro
         if device == "cuda" and launched != want:
             fail(f"step {i}: {launched} K1 launches, expected {want}")
     launches = pk.axpy_accumulate.launches
@@ -278,13 +445,15 @@ def phase_profile(trainer, batch):
 
 def phase_card_vs_cpu(trainer, batch):
     """HVP and vGHv at the trained weights on a fixed ``v``: the card
-    against the port on the CPU in float64.  Float32 on the card runs the
-    micro-batched path through K1.  K1 takes float32 only, so float64 on
-    the card runs the plain ``hvp``/``vghv`` on the first micro-batch, a
-    tight check of the device's convolutions and autodiff.  (BatchNorm
-    statistics are per micro-batch, so a full-batch product is another
-    operator than the micro-batched one.)"""
+    against the port on the CPU in float64.  The micro-batched products
+    run through K1 on the card in float32 and in float64, each held to the
+    CPU's float64 micro-batched product; float64 on the card also runs the
+    plain ``hvp``/``vghv`` on the first micro-batch, a tight check of the
+    device's convolutions and autodiff alone.  (BatchNorm statistics are
+    per micro-batch, so a full-batch product is another operator than the
+    micro-batched one.)"""
     from optwboundeigenval_tpu_torch.ops import curvature
+    from optwboundeigenval_tpu_torch.ops import pallas_kernels as pk
     from optwboundeigenval_tpu_torch.utils.tree import tree_norm, tree_sub
 
     rng = np.random.default_rng(1226)
@@ -302,31 +471,37 @@ def phase_card_vs_cpu(trainer, batch):
     half = {k: t[:len(t) // micro] for k, t in b64.items()}
     f64 = task.loss_fn(s64)
     f64_card = task.loss_fn(cast(s64, torch.float64, dev))
+    on_dev = lambda *trees: [cast(t, torch.float64, dev) for t in trees]
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        return out, 1e3 * (time.perf_counter() - t0)
+
     for name in ("hvp", "vghv"):
         micro_fn, full_fn = getattr(curvature, f"{name}_microbatched"), getattr(curvature, name)
+        micro_ref = timed(lambda: micro_fn(f64, p64, b64, v64, micro))
+        half_ref = timed(lambda: full_fn(f64, p64, half, v64))
         checks = (
-            ("card f32 micro-batched (K1)", CARD_F32_RTOL,
-             lambda: micro_fn(f64, p64, b64, v64, micro),
+            ("card f32 micro-batched (K1)", CARD_F32_RTOL, micro, micro_ref,
              lambda: micro_fn(task.loss_fn(trainer.model_state), trainer.params,
                               batch, cast(v64, torch.float32, dev), micro)),
-            ("card f64 first micro-batch", CARD_F64_RTOL,
-             lambda: full_fn(f64, p64, half, v64),
-             lambda: full_fn(f64_card, cast(p64, torch.float64, dev),
-                             cast(half, torch.float64, dev),
-                             cast(v64, torch.float64, dev))),
+            ("card f64 micro-batched (K1)", CARD_F64_RTOL, micro, micro_ref,
+             lambda: micro_fn(f64_card, *on_dev(p64, b64, v64), micro)),
+            ("card f64 first micro-batch", CARD_F64_RTOL, 0, half_ref,
+             lambda: full_fn(f64_card, *on_dev(p64, half, v64))),
         )
-        for label, bound, on_cpu, on_card in checks:
-            t0 = time.perf_counter()
-            ref = on_cpu()
-            t1 = time.perf_counter()
-            out = cast(on_card(), torch.float64, cpu)
-            t2 = time.perf_counter()
+        for label, bound, launches, (ref, cpu_ms), on_card in checks:
+            before = pk.axpy_accumulate.launches
+            out, card_ms = timed(lambda: cast(on_card(), torch.float64, cpu))
+            launched = pk.axpy_accumulate.launches - before
             rel = float(tree_norm(tree_sub(out, ref)) / tree_norm(ref))
             log(f"{name}: {label} vs cpu f64: relative error {rel:.3e} "
-                f"(bound {bound:g}); card {1e3 * (t2 - t1):.1f} ms, "
-                f"cpu {1e3 * (t1 - t0):.1f} ms")
+                f"(bound {bound:g}); K1 launches {launched}; card {card_ms:.1f} ms, "
+                f"cpu {cpu_ms:.1f} ms")
             if not rel < bound:
                 fail(f"{name}: {label} and the CPU disagree ({rel:.3e})")
+            if launched != launches:
+                fail(f"{name}: {label} launched K1 {launched} times, expected {launches}")
 
 
 def main():

@@ -83,16 +83,30 @@ def _micro_batches(batch, num_micro: int):
         yield mbatch, _batch_weight(mbatch) / w_total
 
 
+def _flat_like(tree: Tree) -> Tree:
+    """Uninitialised leaves shaped like ``tree``'s, views into one buffer
+    at offsets padded to 4 values, so each leaf is 16-byte aligned."""
+    sizes = [t.numel() for t in tree.values()]
+    offsets = [0]
+    for n in sizes:
+        offsets.append(offsets[-1] + -(-n // 4) * 4)
+    first = next(iter(tree.values()))
+    buf = torch.empty(offsets[-1], dtype=first.dtype, device=first.device)
+    return {k: buf[o:o + n].view(t.shape)
+            for (k, t), o, n in zip(tree.items(), offsets, sizes)}
+
+
 def _accumulate(terms) -> Tree:
-    """``sum_m scale_m * term_m`` through the in-place kernel (which takes
-    contiguous leaves only)."""
+    """``sum_m scale_m * term_m`` through the in-place kernel, one call over
+    all leaves per micro-batch; the first writes ``scale_0 * term_0``
+    (``init``), so the accumulator needs no zero fill."""
     acc = None
     for term, scale in terms:
-        if acc is None:
-            acc = {k: torch.zeros(t.shape, dtype=t.dtype, device=t.device)
-                   for k, t in term.items()}
-        for k, a in acc.items():
-            axpy_accumulate(a, term[k].contiguous(), scale)
+        init = acc is None
+        if init:
+            acc = _flat_like(term)
+        axpy_accumulate(list(acc.values()), [term[k].contiguous() for k in acc],
+                        scale, init=init)
     return acc
 
 

@@ -1,26 +1,30 @@
 """Hand-written CUDA kernels of the curvature hot path (the module keeps
 the name of its JAX counterpart, ``optwboundeigenval_tpu/ops/pallas_kernels.py``).
 
-:func:`axpy_accumulate` — in-place ``acc += alpha * delta``.
+:func:`axpy_accumulate` — in-place ``acc += alpha * delta`` over one
+tensor or a list of leaves, in one launch.
 
 * Replaces the Pallas TPU kernel ``optwboundeigenval_tpu/ops/pallas_kernels.py
   ::axpy_accumulate`` (``pl.pallas_call`` at its line 71), the running
-  sum ``acc += scale_m * hv_m`` of the micro-batched HVP, gradient and
+  sum ``acc += scale_m * term_m`` of the micro-batched HVP, gradient and
   vGHv (``ops/curvature.py``).
 * Bound: bytes.  Each element reads ``acc`` and ``delta`` and writes
-  ``acc`` — 12 bytes for 2 flops — so the least time is
-  ``12 * n / 3.35 TB/s`` on an H100 (DenseNet-40: 176,122 values,
+  ``acc`` — 12 bytes in float32 (24 in float64) for 2 flops; under
+  ``init`` it never reads ``acc``, 8 bytes (16).  The least time is
+  bytes over 3.35 TB/s on an H100 (DenseNet-40: 176,122 values,
   2.11 MB, 0.63 us per full-model accumulate).
-* Design: ``csrc/axpy_accumulate.cu`` streams with 16-byte loads where
-  both pointers are aligned, masks the tail instead of padding to tiles,
-  works in place (the TPU kernel wrote a fresh output), and reads
-  ``alpha`` from device memory, so the micro-batch weight ratio never
-  forces a host sync.  One launch per parameter leaf (119 per
-  DenseNet-40 accumulate): at these sizes launch cost, not bytes,
-  dominates.
+* Design: ``csrc/axpy_accumulate.cu`` takes the whole tree in one launch.
+  The per-leaf table ``(acc, delta, n, first_chunk, aligned)`` is packed
+  here (:func:`pack_tables`) and passed by value as a kernel parameter;
+  the leaves are cut into chunks of 8 KB, one block per chunk, 16-byte
+  loads where both pointers of a leaf are aligned, a masked tail.  A
+  list longer than the table (:data:`TABLE_CAPACITY` leaves) takes
+  ``ceil(leaves / TABLE_CAPACITY)`` launches.  It works in place (the TPU
+  kernel wrote a fresh output) and reads ``alpha`` from device memory,
+  so the micro-batch weight never forces a host sync.
 
-The wrapper takes the plain version only for tensors on the CPU; for a
-CUDA tensor it launches the kernel or raises.  Nothing differentiates
+The wrapper takes the plain version only for tensors on the CPU; for
+CUDA tensors it launches the kernel or raises.  Nothing differentiates
 through the accumulate (it runs outside every ``torch.func`` transform),
 so there is no ``autograd.Function``.
 """
@@ -29,72 +33,160 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from operator import attrgetter
+from typing import List, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from optwboundeigenval_tpu_torch.utils import cuda_build
 
 _SOURCE = "axpy_accumulate"
+# must equal kCap and kChunkBytes of csrc/axpy_accumulate.cu (checked at load)
+TABLE_CAPACITY = 1024
+CHUNK_BYTES = 8192
+_ENTRIES = {torch.float32: "axpy_accumulate_tree_f32",
+            torch.float64: "axpy_accumulate_tree_f64"}
+
+Leaves = Union[torch.Tensor, Sequence[torch.Tensor]]
+_T = torch.Tensor
+_device = attrgetter("device")
+_dtype = attrgetter("dtype")
+_requires_grad = attrgetter("requires_grad")
 
 
-def axpy_accumulate_plain(acc: torch.Tensor, delta: torch.Tensor,
-                          alpha: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version: ``acc <- fl(acc + fl(alpha * delta))``, the
-    rounding of the kernel and of the JAX accumulate ``a + scale * d``."""
-    return acc.add_(delta * alpha)
+def axpy_accumulate_plain(acc: Leaves, delta: Leaves, alpha: torch.Tensor,
+                          *, init: bool = False) -> Leaves:
+    """Plain PyTorch version: ``acc <- fl(acc + fl(alpha * delta))`` per
+    leaf, the rounding of the kernel and of the JAX accumulate
+    ``a + scale * d``; under ``init``, ``acc <- fl(alpha * delta)``."""
+    single = isinstance(acc, torch.Tensor)
+    for a, d in zip(*((acc,), (delta,)) if single else (acc, delta)):
+        if init:
+            torch.mul(d, alpha, out=a)
+        else:
+            a.add_(d * alpha)
+    return acc
 
 
-def _check(acc: torch.Tensor, delta: torch.Tensor, alpha: torch.Tensor):
+def _leaves(acc: Leaves, delta: Leaves) -> Tuple[List[_T], List[_T]]:
+    if isinstance(acc, torch.Tensor) and isinstance(delta, torch.Tensor):
+        return [acc], [delta]
+    if isinstance(acc, torch.Tensor) or isinstance(delta, torch.Tensor):
+        raise TypeError("acc and delta must both be tensors or both sequences")
+    return list(acc), list(delta)
+
+
+def _check(accs: List[_T], deltas: List[_T], alpha: torch.Tensor):
     if not isinstance(alpha, torch.Tensor) or alpha.dim() != 0:
         raise TypeError("alpha must be a 0-d tensor")
-    if acc.shape != delta.shape:
-        raise ValueError(f"shape mismatch: acc {tuple(acc.shape)} vs "
-                         f"delta {tuple(delta.shape)}")
-    if acc.requires_grad:
+    if len(accs) != len(deltas):
+        raise ValueError(f"length mismatch: {len(accs)} acc leaves vs "
+                         f"{len(deltas)} delta leaves")
+    if list(map(_T.size, accs)) != list(map(_T.size, deltas)):
+        i = next(i for i, (a, d) in enumerate(zip(accs, deltas)) if a.shape != d.shape)
+        raise ValueError(f"shape mismatch at leaf {i}: acc {tuple(accs[i].shape)} "
+                         f"vs delta {tuple(deltas[i].shape)}")
+    if any(map(_requires_grad, accs)):
         raise ValueError("axpy_accumulate works in place and is not "
                          "differentiable; acc must not require grad")
-    if not (acc.device == delta.device == alpha.device):
-        raise ValueError(f"device mismatch: acc {acc.device}, delta "
-                         f"{delta.device}, alpha {alpha.device}")
+    devices = set(map(_device, accs + deltas))
+    if len(devices | {alpha.device}) > 1:
+        raise ValueError(f"device mismatch: leaves on {sorted(map(str, devices))}, "
+                         f"alpha on {alpha.device}")
+    if len(set(map(_dtype, accs + deltas))) > 1:
+        raise TypeError("acc and delta leaves must share one dtype")
+
+
+def pack_tables(acc_ptrs: Sequence[int], delta_ptrs: Sequence[int],
+                sizes: Sequence[int], itemsize: int) -> List[Tuple[np.ndarray, int]]:
+    """The kernel's launch tables for one accumulate, one per launch.
+
+    Each is ``(rows, chunks)``: ``rows`` a C-contiguous int64 array of
+    ``(acc_ptr, delta_ptr, n, first_chunk, aligned)`` per leaf, at most
+    :data:`TABLE_CAPACITY` rows; ``chunks`` the launch's chunk count.  A leaf of
+    ``n`` values takes ``ceil(n / (CHUNK_BYTES / itemsize))`` chunks,
+    numbered from 0 in each launch; ``aligned`` is 1 where both pointers
+    are 16-byte aligned.  Empty leaves take no row."""
+    acc_p = np.asarray(acc_ptrs, dtype=np.int64)
+    delta_p = np.asarray(delta_ptrs, dtype=np.int64)
+    n = np.asarray(sizes, dtype=np.int64)
+    keep = n > 0
+    acc_p, delta_p, n = acc_p[keep], delta_p[keep], n[keep]
+    chunk = CHUNK_BYTES // itemsize
+    chunks = (n + chunk - 1) // chunk
+    aligned = ((acc_p | delta_p) & 15) == 0
+    tables = []
+    for lo in range(0, len(n), TABLE_CAPACITY):
+        hi = lo + TABLE_CAPACITY
+        c = chunks[lo:hi]
+        total = int(c.sum())
+        if total > np.iinfo(np.int32).max:
+            raise ValueError(f"{total} chunks in one launch exceed the kernel's int32 index")
+        first = np.cumsum(c) - c
+        rows = np.stack([acc_p[lo:hi], delta_p[lo:hi], n[lo:hi], first,
+                         aligned[lo:hi].astype(np.int64)], axis=1)
+        tables.append((np.ascontiguousarray(rows), total))
+    return tables
 
 
 @functools.cache
-def _kernel():
-    fn = cuda_build.load(_SOURCE).axpy_accumulate_f32
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_longlong, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+def _kernels():
+    lib = cuda_build.load(_SOURCE)
+    for name, want in (("axpy_tree_capacity", TABLE_CAPACITY),
+                       ("axpy_tree_chunk_bytes", CHUNK_BYTES)):
+        got = getattr(lib, name)()
+        if got != want:
+            raise RuntimeError(f"{_SOURCE}.cu {name} is {got}, the wrapper packs for {want}")
+    fns = {}
+    for dtype, name in _ENTRIES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+                       ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        fns[dtype] = fn
+    return fns
 
 
-def _launch(acc: torch.Tensor, delta: torch.Tensor, alpha: torch.Tensor):
-    for name, t in (("acc", acc), ("delta", delta), ("alpha", alpha)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32 on the card, got {t.dtype}")
-    if not (acc.is_contiguous() and delta.is_contiguous()):
-        raise ValueError("acc and delta must be contiguous")
-    err = _kernel()(acc.data_ptr(), delta.data_ptr(), alpha.data_ptr(),
-                    acc.numel(),
-                    torch.cuda.current_stream(acc.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"axpy_accumulate launch failed: CUDA error {err}")
-    axpy_accumulate.launches += 1
+def _launch(accs: List[_T], deltas: List[_T], alpha: torch.Tensor, init: bool):
+    dtype = accs[0].dtype
+    if dtype not in _ENTRIES:
+        raise TypeError(f"axpy_accumulate takes float32 or float64 on the card, got {dtype}")
+    if not all(map(_T.is_contiguous, accs + deltas)):
+        raise ValueError("acc and delta leaves must be contiguous")
+    if alpha.dtype != dtype:
+        alpha = alpha.to(dtype)  # on the device: no host sync
+    fn = _kernels()[dtype]
+    stream = torch.cuda.current_stream(accs[0].device).cuda_stream
+    tables = pack_tables(list(map(_T.data_ptr, accs)), list(map(_T.data_ptr, deltas)),
+                         list(map(_T.numel, accs)), accs[0].element_size())
+    for rows, chunks in tables:
+        err = fn(rows.ctypes.data, len(rows), chunks, alpha.data_ptr(), int(init), stream)
+        if err != 0:
+            raise RuntimeError(f"axpy_accumulate launch failed: CUDA error {err}")
+        axpy_accumulate.launches += 1
 
 
-def axpy_accumulate(acc: torch.Tensor, delta: torch.Tensor,
-                    alpha: torch.Tensor) -> torch.Tensor:
-    """``acc += alpha * delta`` in place; returns ``acc``.
+def axpy_accumulate(acc: Leaves, delta: Leaves, alpha: torch.Tensor,
+                    *, init: bool = False) -> Leaves:
+    """``acc += alpha * delta`` in place, over one tensor or over equal-length
+    sequences of same-shaped leaves; returns ``acc``.  Under ``init`` it
+    writes ``acc = alpha * delta`` and never reads ``acc``.
 
     ``alpha`` is a 0-d tensor on the same device.  On the CPU this is the
     plain version (any float dtype); on a CUDA device it launches the
-    kernel (float32, contiguous) or raises."""
-    _check(acc, delta, alpha)
-    if acc.device.type == "cpu":
-        return axpy_accumulate_plain(acc, delta, alpha)
-    if acc.device.type != "cuda":
-        raise ValueError(f"axpy_accumulate runs on cpu or cuda, not {acc.device}")
-    if acc.numel():
-        _launch(acc, delta, alpha)
+    kernel (float32 or float64, contiguous leaves), once per
+    ``TABLE_CAPACITY`` non-empty leaves, or raises."""
+    accs, deltas = _leaves(acc, delta)
+    _check(accs, deltas, alpha)
+    if not accs:
+        return acc
+    device = accs[0].device
+    if device.type == "cpu":
+        return axpy_accumulate_plain(acc, delta, alpha, init=init)
+    if device.type != "cuda":
+        raise ValueError(f"axpy_accumulate runs on cpu or cuda, not {device}")
+    _launch(accs, deltas, alpha, init)
     return acc
 
 

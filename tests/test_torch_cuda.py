@@ -44,10 +44,56 @@ def test_kernel_matches_plain_in_place(cuda, n):
         assert torch.equal(a, want)
 
 
-def test_kernel_rejects_float64_on_the_card(cuda):
-    x = torch.zeros(4, device=cuda, dtype=torch.float64)
-    with pytest.raises(TypeError, match="float32"):
-        pk.axpy_accumulate(x, x, torch.tensor(1.0, device=cuda))
+@pytest.mark.parametrize("init", [False, True])
+def test_kernel_float64_matches_plain(cuda, init):
+    g = torch.Generator(device=cuda).manual_seed(64)
+    alpha = torch.tensor(0.37, device=cuda)  # float32: the wrapper casts it
+    acc = torch.randn(1001, device=cuda, dtype=torch.float64, generator=g)
+    delta = torch.randn(1001, device=cuda, dtype=torch.float64, generator=g)
+    for a, d in ((acc[:1000], delta[:1000]), (acc[1:], delta[1:])):  # aligned, unaligned
+        want = pk.axpy_accumulate_plain(a.clone(), d, alpha, init=init)
+        if init:
+            a.fill_(float("nan"))  # must never be read
+        pk.axpy_accumulate(a, d, alpha, init=init)
+        torch.cuda.synchronize()
+        assert torch.equal(a, want)
+
+
+def _tree(device, dtype, sizes, seed, unaligned=()):
+    """Leaves of ``sizes`` (each its own tensor, or a view at offset 1
+    where its index is in ``unaligned``)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    def leaf(i, n):
+        t = torch.randn(n + 1, device=device, dtype=dtype, generator=g)
+        return t[1:] if i in unaligned else t[:n]
+    return [leaf(i, n) for i, n in enumerate(sizes)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("init", [False, True])
+@pytest.mark.parametrize("case", ["ragged", "above_capacity"])
+def test_kernel_tree_matches_plain(cuda, dtype, init, case):
+    """One call over a tree: a ragged one with an unaligned view leaf and an
+    empty leaf (one launch), and one of more leaves than the table holds
+    (one launch per TABLE_CAPACITY leaves)."""
+    if case == "ragged":
+        sizes, unaligned = [5000, 0, 1000, 1, 3, 2049, 12 * 16 * 3 * 3], (2,)
+    else:
+        sizes, unaligned = [1 + i % 300 for i in range(2 * pk.TABLE_CAPACITY + 7)], (5, 1500)
+    launches = -(-sum(n > 0 for n in sizes) // pk.TABLE_CAPACITY)
+    accs = _tree(cuda, dtype, sizes, 1, unaligned)
+    deltas = _tree(cuda, dtype, sizes, 2, unaligned)
+    alpha = torch.tensor(0.5 + 1.0 / 3.0, device=cuda, dtype=dtype)
+    want = pk.axpy_accumulate_plain([a.clone() for a in accs], deltas, alpha, init=init)
+    if init:
+        for a in accs:
+            a.fill_(float("nan"))
+    before = pk.axpy_accumulate.launches
+    out = pk.axpy_accumulate(accs, deltas, alpha, init=init)
+    torch.cuda.synchronize()
+    assert out is accs and pk.axpy_accumulate.launches - before == launches
+    for a, w in zip(accs, want):
+        assert torch.equal(a, w)
 
 
 def test_train_step_on_the_card(cuda):
@@ -66,8 +112,8 @@ def test_train_step_on_the_card(cuda):
         before = pk.axpy_accumulate.launches
         m = tr.train_step(batch)
         assert m["step_ok"] and m["g"] > 0
-        assert pk.axpy_accumulate.launches - before == \
-            (m["pow_iters"] + 2) * 2 * len(tr.params)
+        # one launch per accumulate: gradient, each HVP, vGHv, 2 micro-batches
+        assert pk.axpy_accumulate.launches - before == (m["pow_iters"] + 2) * 2
 
     to = lambda tree, dev: {k: t.to(dev, torch.float64) if t.is_floating_point()
                             else t.to(dev) for k, t in tree.items()}

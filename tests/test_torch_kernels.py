@@ -1,13 +1,16 @@
 """The port's K1 accumulate (``optwboundeigenval_tpu_torch/ops/pallas_kernels.py``)
 against the JAX Pallas kernel, run in interpret mode on the CPU.
 
-On the CPU the wrapper takes the plain version; the CUDA kernel itself is
-held against that plain version on the card by ``chip_smoke.py`` and by
-``tests/test_torch_cuda.py``.  Tolerance: the plain version rounds as
+On the CPU the wrapper takes the plain version, for one leaf or a whole
+tree; the CUDA kernel itself is held against that plain version on the
+card by ``chip_smoke.py`` and by ``tests/test_torch_cuda.py``.  The
+launch tables the kernel reads are packed in Python and tested here as a
+pure function, without a launch.  Tolerance: the plain version rounds as
 ``fl(acc + fl(alpha * delta))`` like the JAX kernel, so float32 results
 agree to 1 ulp (rtol 1e-6) and float64 ones to rtol 1e-15.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -55,14 +58,99 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         tpk.axpy_accumulate(meta, meta, torch.tensor(1.0, device="meta"))
 
 
-def test_launch_rejects_non_fp32_and_non_contiguous():
-    # the checks that guard the CUDA launch, run before any build
+RAGGED = [(3,), (0,), (7, 13), (1,), (4, 3, 3, 5), (1000,)]
+
+
+@pytest.mark.parametrize("init", [False, True])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_plain_tree_matches_jax_kernel(init, dtype):
+    """One call over ragged leaves (one of them empty) against the JAX
+    kernel mapped over the same tree; under ``init`` the JAX side starts
+    from zeros and the port's accumulator holds NaN it must never read."""
+    rng = np.random.default_rng(1)
+    alpha = 0.5 + 1.0 / 3.0
+    accs = [rng.normal(size=s).astype(dtype) for s in RAGGED]
+    deltas = [rng.normal(size=s).astype(dtype) for s in RAGGED]
+    start = [np.zeros_like(a) for a in accs] if init else accs
+    want = jax.tree.map(lambda a, d: np.asarray(jpk.axpy_accumulate(a, d, alpha)),
+                        [jnp.asarray(a) for a in start], [jnp.asarray(d) for d in deltas])
+    tacc = [torch.full(s, np.nan, dtype=torch.from_numpy(a).dtype) if init
+            else torch.from_numpy(a.copy()) for s, a in zip(RAGGED, accs)]
+    ptrs = [t.data_ptr() for t in tacc]
+    out = tpk.axpy_accumulate(tacc, [torch.from_numpy(d) for d in deltas],
+                              torch.tensor(alpha, dtype=torch.float32), init=init)
+    assert out is tacc and [t.data_ptr() for t in tacc] == ptrs  # in place
+    rtol = 1e-6 if dtype == np.float32 else 1e-15
+    for got, w in zip(tacc, want):
+        np.testing.assert_allclose(got.numpy(), w, rtol=rtol, atol=rtol)
+    assert tpk.axpy_accumulate.launches == 0  # the CPU never launches
+
+
+def test_pack_tables_offsets_chunks_alignment():
+    chunk = tpk.CHUNK_BYTES // 4  # float32 values per chunk
+    sizes = [chunk + 1, 0, 1, 3 * chunk, 5]
+    accs = [0x1000, 0x9000, 0x9100, 0xa004, 0x20000]
+    deltas = [0x40000, 0x50000, 0x50010, 0x60000, 0x70008]
+    [(rows, chunks)] = tpk.pack_tables(accs, deltas, sizes, 4)
+    assert rows.dtype == np.int64 and rows.flags.c_contiguous
+    # the empty leaf takes no row
+    np.testing.assert_array_equal(rows[:, 0], [0x1000, 0x9100, 0xa004, 0x20000])
+    np.testing.assert_array_equal(rows[:, 1], [0x40000, 0x50010, 0x60000, 0x70008])
+    np.testing.assert_array_equal(rows[:, 2], [chunk + 1, 1, 3 * chunk, 5])
+    np.testing.assert_array_equal(rows[:, 3], [0, 2, 3, 6])  # chunk prefix
+    np.testing.assert_array_equal(rows[:, 4], [1, 1, 0, 0])  # 16-byte aligned
+    assert chunks == 7
+    # float64: half as many values per chunk
+    [(rows64, chunks64)] = tpk.pack_tables(accs, deltas, sizes, 8)
+    np.testing.assert_array_equal(rows64[:, 3], [0, 3, 4, 10])
+    assert chunks64 == 11
+    assert tpk.pack_tables([], [], [], 4) == []
+    assert tpk.pack_tables([16], [32], [0], 4) == []
+
+
+@pytest.mark.parametrize("leaves,launches", [(1, 1), (1024, 1), (1025, 2), (2500, 3)])
+def test_pack_tables_splits_above_capacity(leaves, launches):
+    sizes = np.arange(leaves) % 7 + 1
+    ptrs = 16 * np.arange(leaves)
+    tables = tpk.pack_tables(ptrs, ptrs + 8, sizes, 4)
+    assert len(tables) == launches
+    assert all(len(r) <= tpk.TABLE_CAPACITY for r, _ in tables)
+    rows = np.concatenate([r for r, _ in tables])
+    np.testing.assert_array_equal(rows[:, 2], sizes)  # every leaf once, in order
+    for r, chunks in tables:  # each launch numbers its chunks from 0
+        assert r[0, 3] == 0 and chunks == len(r)  # one chunk per small leaf
+        np.testing.assert_array_equal(r[:, 3], np.arange(len(r)))
+    assert not rows[:, 4].any()  # delta at +8: scalar path
+
+
+def test_wrapper_rejects_mismatched_trees():
     one = torch.tensor(1.0)
-    with pytest.raises(TypeError, match="float32"):
-        tpk._launch(torch.zeros(4, dtype=torch.float64),
-                    torch.zeros(4, dtype=torch.float64), one)
+    a = [torch.zeros(3), torch.zeros(2, 2)]
+    with pytest.raises(ValueError, match="length"):
+        tpk.axpy_accumulate(a, [torch.zeros(3)], one)
+    with pytest.raises(ValueError, match="shape mismatch at leaf 1"):
+        tpk.axpy_accumulate(a, [torch.zeros(3), torch.zeros(4)], one)
+    with pytest.raises(TypeError, match="dtype"):
+        tpk.axpy_accumulate(a, [torch.zeros(3), torch.zeros(2, 2, dtype=torch.float64)], one)
+    with pytest.raises(TypeError, match="both"):
+        tpk.axpy_accumulate(a, torch.zeros(3), one)
+    assert tpk.axpy_accumulate([], [], one) == []
+
+
+def test_launch_rejects_non_fp32_and_non_contiguous():
+    # the checks that guard the CUDA launch, run before any build: the
+    # kernel takes float32 and float64, contiguous leaves only
+    one = torch.tensor(1.0)
+    for dtype in (torch.float16, torch.bfloat16, torch.int32):
+        x = torch.zeros(4, dtype=dtype)
+        with pytest.raises(TypeError, match="float32 or float64"):
+            tpk._launch([x], [x], one, False)
     with pytest.raises(ValueError, match="contiguous"):
-        tpk._launch(torch.zeros(4, 4).t(), torch.zeros(4, 4), one)
+        tpk._launch([torch.zeros(3), torch.zeros(4, 4).t()],
+                    [torch.zeros(3), torch.zeros(4, 4)], one, False)
+    with pytest.raises(ValueError, match="contiguous"):
+        tpk._launch([torch.zeros(4, 4, dtype=torch.float64)],
+                    [torch.zeros(4, 4, dtype=torch.float64).t()], one, True)
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
