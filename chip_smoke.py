@@ -13,30 +13,51 @@ Phases (any failure exits non-zero and prints no result line):
    leaves, a DenseNet-121-sized tree and a tree longer than the launch
    table; then time kernel, plain version and the one PyTorch call of the
    same function (``torch._foreach_add_``), and K1's device time;
-4. the main path: the ``cifar10_densenet_mu0_01_K0`` recipe (DenseNet-40-12
-   on CIFAR-10, full width, batch 32) with ``remat=False, hvp_micro=2,
-   augment=False``, built through the config driver and run for 5
-   ``train_step``s; the kernel launch counts are set to 0 just before
-   and read just after, and each step must launch K1 once per
+4. the spectral step: the ``cifar10_densenet_mu0_01_K0`` recipe
+   (DenseNet-40-12 on CIFAR-10, full width, batch 32) with
+   ``remat=False, hvp_micro=2, augment=False``, built through the config
+   driver and run for 5 ``train_step``s; each step must launch K1 once per
    micro-batched accumulate, ``(pow_iters + 2) * hvp_micro`` times;
 5. one more step under ``torch.profiler``: the device's busy share and
-   the kernels that take the time;
+   the kernels that take the time (also after phases 7 and 8, on a step of
+   each model);
 6. the card against the CPU: HVP and vGHv at the trained weights,
    micro-batched through K1 in float32 and float64, and float64 on the
    first micro-batch, on the card vs float64 with the port on the CPU;
-7. a ``{"kernels": [...]}`` line, the card's name and power limit, and
-   last the ``{"ok": true, "device": ...}`` line.
+7. the training run through ``driver.run``, as ``main`` drives it:
+   ``forest_best`` and ``usps_cnn_mu0_01_K0`` at full width on their full
+   synthetic stand-ins (Forest 12,800 / 3,200 / 4,000 rows, USPS 6,250 /
+   1,041 / 2,007, batch 128), 2 epochs with ``rho_test``, logs and
+   checkpoints in a temporary directory; the TSV rows, test lines and
+   ``rho_test`` means must be finite and the best checkpoint must load
+   back to the trained tensors;
+8. the DenseNet-40 epoch through K1: ``cifar10_densenet_mu0_01_K0`` with
+   ``remat=False, augment=False, hvp_micro=2, max_iter=1`` through
+   ``driver.run`` on the first 256 train, valid and test rows (8 steps; a
+   cut for the time limit only), ``defer_metrics`` as the recipe sets
+   it; K1 must launch ``hvp_micro * sum(pow_iters + 2)`` times over the
+   epoch's steps (the epoch-end ``rho`` goes through the cached
+   linearization and launches none);
+9. the cached HVP (``curvature.linearize_hvp``) against the closure
+   (``curvature.hvp``) for ForestNet, CNNUSPS (batch 128) and DenseNet-40
+   (batch 32): float64 on the card vs the CPU's float64 closure, and the
+   set-up and per-HVP times of both on the card, beside one vGHv pass;
+10. a ``{"kernels": [...]}`` line (K1's launches summed over phases 4, 7
+    and 8, each counted from 0 just before its run), the card's name and
+    power limit, and last the ``{"ok": true, "device": ...}`` line.
 
-Weights are random (seed 1226); the data is the CIFAR-10 pickle set when
-``./data/cifar-10-batches-py`` exists, else its synthetic stand-in.
+Weights are random (seed 1226); the data are the real sets when they are
+under ``./data``, else their synthetic stand-ins.
 """
 
 from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -416,7 +437,7 @@ def phase_slice(device="cuda", steps=STEPS):
     return trainer, trainer.put_batch(batch), launches
 
 
-def phase_profile(trainer, batch):
+def phase_profile(trainer, batch, label="densenet40 hvp_micro=2"):
     """One more step under ``torch.profiler``: the device's busy share of
     the step's wall time, K1's share, and the kernels that take most."""
     from torch.autograd import DeviceType
@@ -434,7 +455,7 @@ def phase_profile(trainer, batch):
         log("profile: the profiler recorded no device time (not measured)")
         return
     k1_us = sum(e.self_device_time_total for e in kernels if "axpy" in e.key)
-    log(f"profile (one step, pow_iters {m['pow_iters']}): wall {wall_us / 1e3:.1f} ms, "
+    log(f"profile {label} (one step, pow_iters {m['pow_iters']}): wall {wall_us / 1e3:.1f} ms, "
         f"device busy {busy_us / 1e3:.1f} ms ({100 * busy_us / wall_us:.1f}%), "
         f"idle {100 * (1 - busy_us / wall_us):.1f}%, K1 {k1_us / 1e3:.2f} ms "
         f"({100 * k1_us / busy_us:.2f}% of busy), "
@@ -504,15 +525,197 @@ def phase_card_vs_cpu(trainer, batch):
                 fail(f"{name}: {label} launched K1 {launched} times, expected {launches}")
 
 
+def _finite_floats(text):
+    return all(math.isfinite(float(t)) for t in text.split())
+
+
+def run_epochs(label, opts, device, epochs):
+    """``driver.run`` on ``opts`` with K1's count set to 0 just before and
+    read just after; prints the TSV rows, test lines, epoch seconds,
+    steps/s and power iterations, and fails on anything not finite, a
+    missing row, a best checkpoint that does not load back to the
+    trained tensors or non-finite ``rho_test`` means.  Returns the
+    trainer, a train batch and the K1 launches of the run."""
+    from optwboundeigenval_tpu_torch.ops import pallas_kernels as pk
+    from optwboundeigenval_tpu_torch.train import checkpoints, driver
+
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    pk.axpy_accumulate.launches = 0
+    sync()
+    t0 = time.perf_counter()
+    trainer = driver.run(opts)
+    sync()
+    wall = time.perf_counter() - t0
+    launches = pk.axpy_accumulate.launches
+    with open(trainer.log_file) as fh:
+        lines = fh.read().splitlines()
+    rows = [ln for ln in lines[1:] if ln[:1].isdigit()]
+    tests = [ln for ln in lines if ln.split(":")[0].endswith(("Loss", "Accuracy", "F1"))]
+    steps = epochs * len(trainer.epoch_pow_iters)
+    t = trainer.timers.totals
+    log(f"{label}: {trainer.ndim} parameters, {steps} steps in {epochs} epochs, "
+        f"driver.run {wall:.1f} s; per epoch {t['Iteration'] / epochs:.2f} s "
+        f"(steps {t['G'] / epochs:.2f} s, epoch-end f {t['Test'] / epochs:.2f} s), "
+        f"{steps / t['G']:.2f} steps/s; mean pow_iters (last epoch) "
+        f"{trainer.mean_pow_iters:.2f}; K1 launches {launches}")
+    log(lines[0])
+    for ln in rows + tests:
+        log(f"  {ln}")
+    if len(rows) != epochs or not all(_finite_floats(r) for r in rows):
+        fail(f"{label}: the log holds {len(rows)} rows, expected {epochs} finite ones")
+    if len(tests) < 6 or not all(math.isfinite(float(ln.split(":")[1])) for ln in tests):
+        fail(f"{label}: the train and test lines are missing or not finite")
+    best = os.path.join(trainer.model_dir, trainer.header2 + "_trained_model_best.pt")
+    if not os.path.exists(best):
+        fail(f"{label}: no best checkpoint {best}")
+    saved = checkpoints.load_checkpoint(best)["params"]
+    if sorted(saved) != sorted(trainer.params) or not all(
+            torch.equal(saved[k].to(trainer.device), p) for k, p in trainer.params.items()):
+        fail(f"{label}: the best checkpoint does not load back to the tested tensors")
+    if opts.get("rho_test"):
+        csv = np.loadtxt(os.path.join(trainer.log_dir, trainer.header2 + "_rho_test.csv"),
+                         delimiter=",", ndmin=2)
+        means = csv[:, 1:].mean(axis=0)
+        log(f"{label}: rho_test over {len(csv)} batches, means rho {means[0]:.6g} "
+            f"norm {means[1]:.6g} iters {means[2]:.3f} res_change {means[3]:.6g} "
+            f"seconds {means[4]:.4f}")
+        if not np.isfinite(csv).all():
+            fail(f"{label}: rho_test values not finite")
+    train_loader = driver._loaders(opts, trainer.batch_size)[0]
+    return trainer, trainer.put_batch(next(iter(train_loader))), launches
+
+
+def phase_epochs(device="cuda", epochs=2):
+    """Phase 7: Forest and USPS through ``driver.run`` at full width."""
+    from optwboundeigenval_tpu_torch.configs import forest_best, usps_cnn_mu0_01_K0
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, mod in (("forest_best", forest_best),
+                           ("usps_cnn_mu0_01_K0", usps_cnn_mu0_01_K0)):
+            opts = mod.options(max_iter=epochs, rho_test=True, device=device,
+                               log_dir=f"{tmp}/{label}/logs",
+                               model_dir=f"{tmp}/{label}/models")
+            out[label] = run_epochs(label, opts, device, epochs)
+    return out
+
+
+def phase_densenet_epoch(device="cuda", rows=256):
+    """Phase 8: one DenseNet-40 epoch through ``driver.run`` with
+    ``hvp_micro=2``, on the first ``rows`` rows of each split; K1's
+    launches must be ``hvp_micro * sum(pow_iters + 2)`` over the steps."""
+    from optwboundeigenval_tpu_torch.configs import cifar10_densenet_mu0_01_K0
+    from optwboundeigenval_tpu_torch.data.loaders import ArrayLoader
+
+    with tempfile.TemporaryDirectory() as tmp:
+        opts = cifar10_densenet_mu0_01_K0.options(
+            remat=False, augment=False, hvp_micro=2, max_iter=1, device=device,
+            log_dir=f"{tmp}/logs", model_dir=f"{tmp}/models")
+        bs = opts["batch_size"]
+        cut = lambda ld, **kw: ArrayLoader(ld.x[:rows], ld.y[:rows], bs, **kw)
+        opts["train_loader"] = cut(opts["train_loader"], shuffle=True, seed=1226)
+        opts["valid_loader"] = cut(opts["valid_loader"])
+        opts["train_loader_na"] = cut(opts["train_loader_na"])
+        opts["test_loader"] = [cut(opts["test_loader"][0])]
+        trainer, batch, launches = run_epochs("cifar10_densenet_mu0_01_K0", opts,
+                                              device, 1)
+    want = trainer.hvp_micro * sum(p + 2 for p in trainer.epoch_pow_iters)
+    log(f"densenet40 epoch: defer_metrics {trainer.defer_metrics}, pow_iters per "
+        f"step {trainer.epoch_pow_iters}, K1 launches {launches}, expected {want}")
+    if device == "cuda" and (launches != want or launches == 0):
+        fail(f"densenet40 epoch: {launches} K1 launches, expected {want}")
+    return trainer, batch, launches
+
+
+def _first_batch(mod, rows, **overrides):
+    opts = mod.options(device="cpu", **overrides)
+    if "train_loader" in opts:
+        ld = opts["train_loader"]
+        x, y = ld.x[:rows], ld.y[:rows]
+    else:
+        x, y = opts["inputs"][:rows], opts["target"][:rows]
+    return opts["model"], opts.get("has_batch_stats", False), {
+        "x": x, "y": y, "w": np.ones(rows, np.float32)}
+
+
+def phase_cached_hvp(reps=20):
+    """Phase 9: ``linearize_hvp`` (one gradient graph, one reverse pass per
+    HVP) against the closure (``curvature.hvp``, forward-over-reverse from
+    scratch per HVP): float64 on the card vs the CPU's float64 closure, and
+    both on the card timed, set-up (the gradient) and per HVP."""
+    from optwboundeigenval_tpu_torch.configs import (
+        cifar10_densenet_mu0_01_K0, forest_best, usps_cnn_mu0_01_K0)
+    from optwboundeigenval_tpu_torch.ops import curvature
+    from optwboundeigenval_tpu_torch.train.task import Task
+    from optwboundeigenval_tpu_torch.utils.tree import tree_norm, tree_sub
+
+    cases = (("ForestNet b128", forest_best, 128, {}),
+             ("CNNUSPS b128", usps_cnn_mu0_01_K0, 128, {}),
+             ("DenseNet-40 b32", cifar10_densenet_mu0_01_K0, 32, {"augment": False}))
+    cpu = torch.device("cpu")
+    for label, mod, rows, kw in cases:
+        model, bn, batch = _first_batch(mod, rows, **kw)
+        task = Task(model=model, has_batch_stats=bn)
+        p32, s32 = task.init(torch.Generator().manual_seed(1226), cpu)
+        rng = np.random.default_rng(1226)
+        v = {k: torch.from_numpy(rng.normal(size=tuple(t.shape))) for k, t in p32.items()}
+        v = {k: t / float(tree_norm(v)) for k, t in v.items()}
+        to = lambda tree, dtype, dev: {
+            k: t.to(dev, dtype) if t.is_floating_point() else t.to(dev)
+            for k, t in tree.items()}
+        b = {k: torch.as_tensor(a) for k, a in batch.items()}
+        ref = curvature.hvp(task.loss_fn(to(s32, torch.float64, cpu)),
+                            to(p32, torch.float64, cpu), b, v)
+        timings = []
+        for dtype in (torch.float64, torch.float32):
+            p, s, bd, vd = (to(t, dtype, "cuda") for t in (p32, s32, b, v))
+            loss = task.loss_fn(s)
+            _, hvp_fn = curvature.linearize_hvp(loss, p, bd)
+            got = to(hvp_fn(vd), torch.float64, cpu)
+            rel = float(tree_norm(tree_sub(got, ref)) / tree_norm(ref))
+            closure = to(curvature.hvp(loss, p, bd, vd), torch.float64, cpu)
+            rel_c = float(tree_norm(tree_sub(closure, ref)) / tree_norm(ref))
+            bound = CARD_F64_RTOL if dtype == torch.float64 else CARD_F32_RTOL
+            log(f"cached hvp {label} {dtype}: card linearize_hvp vs cpu f64 closure "
+                f"{rel:.3e}, card closure vs cpu {rel_c:.3e} (bound {bound:g})")
+            if not (rel < bound and rel_c < bound):
+                fail(f"cached hvp {label} {dtype}: the card and the CPU disagree")
+            setup_c = cuda_time_ms(lambda: curvature.linearize_hvp(loss, p, bd), 5, 1)
+            hvp_c = cuda_time_ms(lambda: hvp_fn(vd), reps)
+            setup_u = cuda_time_ms(lambda: curvature.grad(loss, p, bd), 5, 1)
+            hvp_u = cuda_time_ms(lambda: curvature.hvp(loss, p, bd, vd), reps)
+            vghv = cuda_time_ms(lambda: curvature.vghv(loss, p, bd, vd), 5, 1)
+            timings.append(f"{dtype}: cached set-up {setup_c:.3f} ms, {hvp_c:.3f} ms "
+                           f"per HVP; closure set-up {setup_u:.3f} ms, {hvp_u:.3f} ms "
+                           f"per HVP ({hvp_u / hvp_c:.2f}x); vGHv {vghv:.3f} ms")
+        log(f"cached hvp {label} on the card (wall, CUDA events): " + "; ".join(timings))
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs an NVIDIA GPU")
+    t0 = time.perf_counter()
+    done = lambda phase: log(f"[{time.perf_counter() - t0:.0f} s] {phase} done")
     smi = phase_card()
     phase_build()
+    done("phases 1-2")
     entry = phase_kernel_check(densenet40_leaf_shapes())
+    done("phase 3")
     trainer, batch, launches = phase_slice()
     phase_profile(trainer, batch)
+    done("phases 4-5")
     phase_card_vs_cpu(trainer, batch)
+    done("phase 6")
+    for label, (tr, b, n) in phase_epochs().items():
+        phase_profile(tr, b, label)
+        launches += n
+    done("phase 7")
+    tr, b, n = phase_densenet_epoch()
+    phase_profile(tr, b, "cifar10_densenet_mu0_01_K0 epoch trainer")
+    launches += n
+    done("phase 8")
+    phase_cached_hvp()
+    done("phase 9")
     kernels = [{**entry, "launches": launches}]
     log(json.dumps({"kernels": kernels}))
     log(smi)

@@ -1,5 +1,15 @@
-"""Config factories (counterpart of ``optwboundeigenval_tpu/configs/_families.py``;
-only the CIFAR-10 family so far).
+"""Config factories (counterpart of ``optwboundeigenval_tpu/configs/_families.py``):
+the USPS, Forest and CIFAR-10 families.  Each returns the options dict
+of ``train/driver.py``; keyword overrides land in it last, so
+``forest_config(device="cpu", max_iter=2)`` works as ``main``'s
+``key=value`` arguments do.
+
+USPS: params/usps_CNN_mu0_01_K0.py — the CNN, Adam lr 1e-3, batch 128,
+cross entropy, tol 0.001.  ``aug_test=True`` needs the augmented test
+loaders, which are not ported yet, and raises.
+
+Forest: params/forest_best.py — the MLP, SGD lr 0.5 with LambdaLR
+``1 / (1 + k)``, mu 0.0028, K 1, batch 128.
 
 CIFAR-10: params/cifar10_DenseNet_mu0_01_K100.py — DenseNet-40-12, SGD
 lr 0.1 momentum 0.9 weight decay 1e-4, milestone LR 1 / 0.2 / 0.04 at
@@ -9,6 +19,83 @@ not ported yet and raise until overridden.
 """
 
 from __future__ import annotations
+
+
+def usps_config(
+    mu=0.01,
+    K=0.0,
+    Kmin=0.0,
+    optimizer: str = "adam",
+    pow_iter: bool = True,
+    batch_size: int = 128,
+    max_iter: int = 100,
+    augment: bool = False,
+    **extra,
+):
+    from optwboundeigenval_tpu_torch.data import usps
+    from optwboundeigenval_tpu_torch.models.cnn_usps import CNNUSPS
+
+    opt = {
+        "seed": 1226,
+        "tol": 0.001,
+        "mu": mu,
+        "K": K,
+        "Kmin": Kmin,
+        "batch_size": batch_size,
+        "max_iter": max_iter,
+        "header": "USPS",
+        "model": CNNUSPS(),
+        "loss": "cross_entropy",
+        "pow_iter": pow_iter,
+    }
+    opt["train_loader"], opt["valid_loader"] = usps.get_train_valid_loader(
+        batch_size=batch_size, augment=augment)
+    opt["train_loader_na"] = usps.get_train_loader_na(batch_size=batch_size)
+    opt["test_loader"] = [usps.get_test_loader(batch_size=batch_size)]
+    if extra.get("aug_test"):
+        opt["test_loader_aug"] = usps.get_test_loader(batch_size=batch_size,
+                                                      augment=True)
+    opt["optimizer"] = _make_optimizer(optimizer, default_adam=True)
+    opt.update(extra)
+    return opt
+
+
+def forest_config(
+    mu=0.0028,
+    K=1.0,
+    Kmin=0.0,
+    optimizer: str = "sgd",
+    pow_iter: bool = True,
+    batch_size: int = 128,
+    max_iter: int = 100,
+    lr: float = 0.5,
+    data_root: str = "./data",
+    **extra,
+):
+    from optwboundeigenval_tpu_torch.data import forest
+    from optwboundeigenval_tpu_torch.models.mlp_forest import ForestNet
+    from optwboundeigenval_tpu_torch.optim import schedules
+
+    opt = {
+        "seed": 1226,
+        "tol": 0.001,
+        "mu": mu,
+        "K": K,
+        "Kmin": Kmin,
+        "batch_size": batch_size,
+        "max_iter": max_iter,
+        "header": "Forest",
+        "model": ForestNet(),
+        "loss": "cross_entropy",
+        "pow_iter": pow_iter,
+    }
+    opt.update(forest.get_data(data_root))
+    opt["optimizer"] = _make_optimizer(optimizer, lr=lr)
+    # beta(k) = 1/(1+k) on the optimizer's base lr (params/forest_best.py)
+    base_lr = opt["optimizer"].get_learning_rate(opt["optimizer"].init({}))
+    opt["scheduler"] = schedules.LambdaLR(base_lr, lambda k: 1.0 / (1.0 + k))
+    opt.update(extra)
+    return opt
 
 
 def cifar10_config(
@@ -62,3 +149,19 @@ def cifar10_config(
     opt["scheduler"] = schedules.LambdaLR(0.1, alpha)
     opt.update(extra)
     return opt
+
+
+def _make_optimizer(name: str, lr: float = None, default_adam: bool = False):
+    """``adam`` or ``sgd`` at the JAX package's default rates; the
+    comparator optimizers (``sam``, ``entropy_sgd``, ``kfac``) are not
+    ported yet and raise."""
+    from optwboundeigenval_tpu_torch.optim.api import adam, sgd
+
+    name = name.lower()
+    if name == "adam":
+        return adam(lr or 1e-3)
+    if name == "sgd":
+        return sgd(lr or (0.1 if not default_adam else 0.5))
+    if name in ("sam", "entropy_sgd", "kfac"):
+        raise NotImplementedError(f"optimizer {name!r} is not ported")
+    raise ValueError(f"unknown optimizer {name}")

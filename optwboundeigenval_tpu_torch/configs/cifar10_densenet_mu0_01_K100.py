@@ -1,0 +1,11 @@
+"""CIFAR-10 DenseNet-40-12 recipe, mu 0.01, K 100.0 (reference params/cifar10_DenseNet_mu0_01_K100.py).
+
+``options(**overrides)`` takes ``key=value`` overrides as ``main`` does,
+e.g. ``options(remat=False, augment=False)``.
+"""
+
+from optwboundeigenval_tpu_torch.configs._families import cifar10_config
+
+
+def options(**overrides):
+    return cifar10_config(**{"mu": 0.01, "K": 100.0, **overrides})

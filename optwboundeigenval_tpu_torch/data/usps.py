@@ -1,0 +1,85 @@
+"""USPS loaders (counterpart of ``optwboundeigenval_tpu/data/usps.py``).
+
+Reference surface (usps_data.py): ``get_train_valid_loader`` (1/7 valid
+split, seed 1226), ``get_train_loader_na`` (its non-augmented twin) and
+``get_test_loader``.  Reads the libsvm-format ``usps.bz2`` /
+``usps.t.bz2`` from ``root`` when present, else a deterministic
+synthetic stand-in with the same shapes (7,291 train and 2,007 test
+16x16x1 images, 10 classes).  Augmentation is not ported yet:
+``augment=True`` raises.
+"""
+
+from __future__ import annotations
+
+import bz2
+import os
+from typing import Tuple
+
+import numpy as np
+
+from optwboundeigenval_tpu_torch.data.loaders import ArrayLoader, train_valid_split
+from optwboundeigenval_tpu_torch.data.synthetic import make_images
+
+SEED = 1226  # usps_data.py:27-28
+N_TRAIN, N_TEST = 7291, 2007  # official USPS split sizes
+
+
+def _no_augment(augment: bool) -> None:
+    if augment:
+        raise NotImplementedError("USPS augmentation is not ported yet; "
+                                  "pass augment=False")
+
+
+def _read_libsvm_bz2(path: str) -> Tuple[np.ndarray, np.ndarray]:
+    xs, ys = [], []
+    with bz2.open(path, "rt") as fh:
+        for line in fh:
+            parts = line.split()
+            ys.append(int(float(parts[0])) - 1)  # labels 1..10 -> 0..9
+            row = np.zeros(256, np.float32)
+            for tok in parts[1:]:
+                i, v = tok.split(":")
+                row[int(i) - 1] = float(v)
+            xs.append(row)
+    x = np.stack(xs).reshape(-1, 16, 16, 1)
+    # libsvm USPS is in [-1, 1]; map to [0, 1] like torchvision ToTensor
+    x = (x + 1.0) / 2.0
+    return x.astype(np.float32), np.asarray(ys, np.int32)
+
+
+def load_usps(root: str = "./data", train: bool = True):
+    fname = os.path.join(root, "usps.bz2" if train else "usps.t.bz2")
+    if os.path.exists(fname):
+        return _read_libsvm_bz2(fname)
+    n = N_TRAIN if train else N_TEST
+    return make_images(n, shape=(16, 16, 1), n_classes=10,
+                       seed=SEED if train else SEED + 1)
+
+
+def get_train_valid_loader(batch_size: int = 128, augment: bool = False,
+                           valid_size: float = 1.0 / 7, root: str = "./data",
+                           seed: int = SEED):
+    """``(train_loader, valid_loader)``: 1/7 validation split from a seeded
+    permutation; the train loader shuffles."""
+    _no_augment(augment)
+    x, y = load_usps(root, train=True)
+    tr_idx, va_idx = train_valid_split(len(x), valid_size, seed)
+    train_loader = ArrayLoader(x[tr_idx], y[tr_idx], batch_size, shuffle=True,
+                               seed=seed)
+    return train_loader, ArrayLoader(x[va_idx], y[va_idx], batch_size)
+
+
+def get_train_loader_na(batch_size: int = 128, valid_size: float = 1.0 / 7,
+                        root: str = "./data", seed: int = SEED):
+    """Non-augmented, unshuffled twin of the train loader
+    (usps_data.py:146-155)."""
+    x, y = load_usps(root, train=True)
+    tr_idx, _ = train_valid_split(len(x), valid_size, seed)
+    return ArrayLoader(x[tr_idx], y[tr_idx], batch_size)
+
+
+def get_test_loader(batch_size: int = 128, augment: bool = False,
+                    root: str = "./data", seed: int = SEED):
+    _no_augment(augment)
+    x, y = load_usps(root, train=False)
+    return ArrayLoader(x, y, batch_size, seed=seed)

@@ -6,6 +6,7 @@ A loss function maps ``(params, batch) -> scalar`` with ``params`` a
 dict of tensors.  Every product is a ``torch.func`` composition:
 
 * ``hvp``  = forward-over-reverse, ``jvp(grad(loss))``;
+* ``linearize_hvp`` = the gradient's graph kept, one reverse pass per HVP;
 * ``vghv`` = ``grad_p <jvp(grad(loss))(p; v), v>``, one reverse pass
   over the HVP.
 
@@ -46,11 +47,25 @@ def hvp(loss_fn: LossFn, params: Tree, batch, v: Tree) -> Tree:
 
 def linearize_hvp(loss_fn: LossFn, params: Tree, batch
                   ) -> Tuple[Tree, Callable[[Tree], Tree]]:
-    """``(grad, hvp_fn)`` for one batch.
+    """``(grad, hvp_fn)`` for one batch, the gradient taken once and kept.
 
-    Unlike the JAX version this is NOT a cached linearization: ``hvp_fn``
-    re-runs the whole forward-over-reverse pass on every call."""
-    return grad(loss_fn, params, batch), lambda v: hvp(loss_fn, params, batch, v)
+    The counterpart of ``jax.linearize(grad(loss))``: one reverse pass with
+    ``create_graph=True`` builds the gradient's graph, and every
+    ``hvp_fn(v)`` is one reverse pass over that graph,
+    ``autograd.grad(grad, params, v)`` (the reference's ``stored_grad``,
+    opt.py:86-99).  The graph lives as long as ``hvp_fn``.  The returned
+    gradient is detached."""
+    leaves = {k: p.detach().requires_grad_(True) for k, p in params.items()}
+    inputs = list(leaves.values())
+    with torch.enable_grad():
+        g = torch.autograd.grad(loss_fn(leaves, batch), inputs, create_graph=True)
+
+    def hvp_fn(v: Tree) -> Tree:
+        hv = torch.autograd.grad(g, inputs, [v[k] for k in leaves],
+                                 retain_graph=True)
+        return dict(zip(leaves, hv))
+
+    return {k: t.detach() for k, t in zip(leaves, g)}, hvp_fn
 
 
 def vghv(loss_fn: LossFn, params: Tree, batch, v: Tree) -> Tree:

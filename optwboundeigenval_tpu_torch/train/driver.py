@@ -1,20 +1,47 @@
-"""Config driver (counterpart of ``optwboundeigenval_tpu/train/driver.py``;
-only the trainer construction is ported, the run cascade waits).
+"""Config driver (counterpart of ``optwboundeigenval_tpu/train/driver.py``).
 
 A config module exports ``options(**overrides) -> dict`` holding live
 objects (model, optimizer, loaders) and run flags, the reference's
 python-module-as-config pattern (opt.py:1990-1994).  ``build_trainer``
-filters that dict into the trainer constructor by reflection
-(``missing_params``/``arg_dic``, opt.py:1940-1965).
+passes that dict into the trainer constructor by reflection
+(``missing_params``/``arg_dic``, opt.py:1940-1965, with ``tol`` read as
+``eps``), and ``run`` executes the cascade train -> test -> parse ->
+aug_test -> rho_test off the option flags (opt.py:2018-2102).
+
+An option that is neither a trainer argument nor one the driver reads
+raises, so a setting the port does not implement is never dropped
+without a word.  The JAX driver's ``device_data``, ``pretrained_npz``,
+``comp_test``, ``saliency``, ``jaccard``, ``jaccard_comp`` and
+``asymmetric_valley`` are not ported and raise when set.
 """
 
 from __future__ import annotations
 
+import importlib
 import inspect
 from typing import Any, Dict
 
+import numpy as np
+
+from optwboundeigenval_tpu_torch.data.loaders import ArrayLoader
 from optwboundeigenval_tpu_torch.train.task import Task, losses
 from optwboundeigenval_tpu_torch.train.trainer import SpectralTrainer
+
+_REPLACE = {"tol": "eps"}  # option name -> trainer argument (driver.py:52)
+# options the driver and the task read, beside the trainer's arguments
+_DRIVER_KEYS = {
+    "task", "model", "loss", "has_batch_stats", "has_dropout", "optimizer",
+    "scheduler", "inputs", "target", "inputs_valid", "target_valid",
+    "inputs_test", "target_test", "train_loader", "valid_loader",
+    "train_loader_na", "test_loader", "test_loader_aug", "train", "test",
+    "fname", "aug_test", "rho_test", "crops",
+    # data facts the Forest loader returns beside its arrays
+    "scaler_mean", "scaler_scale",
+}
+# the JAX driver's options whose code is not ported yet; inert when unset,
+# None or False
+_UNPORTED = ("device_data", "pretrained_npz", "comp_test", "saliency",
+             "jaccard", "jaccard_comp", "asymmetric_valley")
 
 
 def arg_dic(fn, options: Dict[str, Any], replace=None) -> Dict[str, Any]:
@@ -29,9 +56,21 @@ def arg_dic(fn, options: Dict[str, Any], replace=None) -> Dict[str, Any]:
     return out
 
 
+def _check_known(options: Dict[str, Any]) -> None:
+    for k in _UNPORTED:
+        if options.get(k):
+            raise NotImplementedError(f"option {k}={options[k]!r} is not ported")
+    known = (set(inspect.signature(SpectralTrainer.__init__).parameters)
+             | set(_REPLACE) | _DRIVER_KEYS | set(_UNPORTED))
+    unknown = sorted(set(options) - known)
+    if unknown:
+        raise NotImplementedError(f"options {unknown} are not known to the port")
+
+
 def build_trainer(options: Dict[str, Any]) -> SpectralTrainer:
     """The trainer a config's options describe.  ``options["device"]``
     (default: the card) is where it runs."""
+    _check_known(options)
     task = options.get("task")
     if task is None:
         loss = options.get("loss", "cross_entropy")
@@ -43,10 +82,63 @@ def build_trainer(options: Dict[str, Any]) -> SpectralTrainer:
             has_batch_stats=options.get("has_batch_stats", False),
             has_dropout=options.get("has_dropout", False),
         )
-    if options.get("asymmetric_valley", False):
-        raise NotImplementedError("AsymmetricValleyTrainer is not ported")
-    kwargs = arg_dic(SpectralTrainer.__init__, options)
+    kwargs = arg_dic(SpectralTrainer.__init__, options, replace=_REPLACE)
     for k in ("task", "optimizer", "scheduler"):
         kwargs.pop(k, None)
     return SpectralTrainer(task, options["optimizer"], options.get("scheduler"),
                            **kwargs)
+
+
+def _loaders(options, batch_size):
+    """Wrap raw arrays into loaders (assert_dl, opt.py:1969-1973)."""
+
+    def get(key_loader, key_x, key_y):
+        if options.get(key_loader) is not None:
+            return options[key_loader]
+        if options.get(key_x) is not None:
+            return ArrayLoader(np.asarray(options[key_x]),
+                               np.asarray(options[key_y]), batch_size)
+        return None
+
+    train_loader = get("train_loader", "inputs", "target")
+    valid_loader = get("valid_loader", "inputs_valid", "target_valid")
+    test_loaders = get("test_loader", "inputs_test", "target_test")
+    if test_loaders is not None and not isinstance(test_loaders, list):
+        test_loaders = [test_loaders]
+    return train_loader, valid_loader, test_loaders
+
+
+def run(options: Dict[str, Any]) -> SpectralTrainer:
+    """Execute the cascade (opt.py:2012-2102) and return the trainer."""
+    trainer = build_trainer(options)
+    train_loader, valid_loader, test_loaders = _loaders(
+        options, options.get("batch_size", 128))
+    train_loader_na = options.get("train_loader_na")
+    crops = options.get("crops", False)
+
+    if options.get("train", True):
+        trainer.train(train_loader=train_loader, valid_loader=valid_loader,
+                      train_loader_na=train_loader_na, crops=crops)
+    else:
+        trainer.model_load(options.get("fname"))
+
+    if options.get("test", True) and test_loaders:
+        for tl in test_loaders:
+            trainer.test_set(loader=tl, label="Test", crops=crops)
+
+    trainer.parse()
+
+    if options.get("aug_test", False) and options.get("test_loader_aug") is not None:
+        tla = options["test_loader_aug"]
+        for tl in tla if isinstance(tla, list) else [tla]:
+            trainer.test_set(loader=tl, label="Aug Test", crops=crops)
+
+    if options.get("rho_test", False):
+        trainer.rho_test(loader=train_loader_na if train_loader_na is not None
+                         else train_loader)
+    return trainer
+
+
+def main(config_name: str, **overrides) -> SpectralTrainer:
+    """``run`` on the options of the config module ``config_name``."""
+    return run(importlib.import_module(config_name).options(**overrides))

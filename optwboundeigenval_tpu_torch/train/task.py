@@ -12,7 +12,8 @@ differentiated two and three times.
   regularized (the reference computes HVPs in train mode, opt.py:421).
 * ``train_loss(params, model_state, batch)`` — ``(loss, new_state)``:
   the running statistics update here, functionally, and only here.
-* ``predict(params, model_state, batch)`` — eval-mode outputs.
+* ``predict(params, model_state, batch)`` — eval-mode outputs;
+  ``eval_loss`` adds the loss.
 
 Batches are dicts ``{"x", "y", "w"}``; ``w`` weights each example and
 carries ``w = 0`` on padded rows, so every loss is a weighted mean.
@@ -168,3 +169,10 @@ class Task:
     def predict(self, params, model_state, batch):
         """Eval-mode outputs (running statistics)."""
         return self._apply(params, model_state, batch["x"], False)
+
+    @torch.no_grad()
+    def eval_loss(self, params, model_state, batch):
+        """``(loss, outputs)`` in eval mode: the weighted-mean loss of the
+        epoch-end ``f`` (opt.py:730-739)."""
+        out = self.predict(params, model_state, batch)
+        return self.loss(out, batch["y"], batch.get("w")), out

@@ -1,11 +1,11 @@
-"""SpectralTrainer — one spectral-regularized training step on the card
-(counterpart of ``optwboundeigenval_tpu/train/trainer.py``; the epoch
-loop, logging, evaluation and checkpoints are not ported yet).
+"""SpectralTrainer — the spectral-regularized training run on the card
+(counterpart of ``optwboundeigenval_tpu/train/trainer.py``).
 
 A step (``_step_body``, reference ``iter()`` body, opt.py:580-763):
 
-1. gradient of the task loss and an HVP map (micro-batched when
-   ``hvp_micro > 1``, through the CUDA accumulate kernel);
+1. gradient of the task loss and an HVP map: the cached linearization
+   (``curvature.linearize_hvp``), or micro-batched passes through the
+   CUDA accumulate kernel when ``hvp_micro > 1``;
 2. damped power iteration for ``rho``, warm-started from the carried
    eigenvector;
 3. the penalty ``g`` and, when ``g > 0``, ``grad g`` from the vGHv pass;
@@ -14,21 +14,33 @@ A step (``_step_body``, reference ``iter()`` body, opt.py:580-763):
    PRE-step parameters (the reference advances them in comp_rho's
    forward, before the step mutates the weights).
 
-State ``(params, model_state, opt_state, v)`` is carried explicitly.
-Entry points run on the card: ``device=None`` means ``cuda``, and a
-machine without one raises; pass ``device="cpu"`` to run on the CPU.
+An epoch (``iter_epoch``) runs the steps, recomputes ``f`` over the
+train set in eval mode and ``rho`` on one random batch, and sets
+``h = f + mu * g``; ``train`` loops epochs with the reference's TSV log,
+best-model checkpoint and coefficient-of-variation stop; ``test_model``,
+``test_set``, ``rho_test`` and ``parse`` are the evaluation cascade.
+
+State ``(params, model_state, opt_state, v)`` is carried explicitly as
+dicts of tensors.  Entry points run on the card: ``device=None`` means
+``cuda``, and a machine without one raises; pass ``device="cpu"`` to run
+on the CPU.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional, Union
+import os
+import time
+from typing import Any, Callable, Dict, List, Optional, Union
 
 import numpy as np
 import torch
 
+from optwboundeigenval_tpu_torch.data.loaders import ArrayLoader
 from optwboundeigenval_tpu_torch.ops import curvature, eigen, spectral
 from optwboundeigenval_tpu_torch.optim.api import Optimizer
+from optwboundeigenval_tpu_torch.train import checkpoints
 from optwboundeigenval_tpu_torch.train.task import Task
+from optwboundeigenval_tpu_torch.utils.timing import Timers
 from optwboundeigenval_tpu_torch.utils.tree import tree_norm, tree_uniform_like
 
 
@@ -48,16 +60,55 @@ def resolve_device(device=None) -> torch.device:
 _UNPORTED = {
     "lobpcg": False, "precond_builder": None, "scan_steps": 1, "mesh": None,
     "remat": False, "donate": False, "mem_track": False, "profile_dir": None,
-    "rand_init": False,
+    "rand_init": False, "lanczos_m": None, "kfac_rand": True,
+    "kfac_ema": False, "kfac_batch": 1, "profile_epoch": 0,
 }
+# test_func words whose evaluation (sigmoid outputs, AUC) is not ported yet
+_UNPORTED_TEST_FUNC = ("auc", "sigmoid", "logit")
+
+CKPT = "_trained_model.pt"
+CKPT_BEST = "_trained_model_best.pt"
+CKPT_FULL = "_full.pt"
+
+
+def _as_loader(data, batch_size) -> ArrayLoader:
+    if isinstance(data, ArrayLoader):
+        return data
+    x, y = data
+    return ArrayLoader(np.asarray(x), np.asarray(y), batch_size=batch_size)
+
+
+def f1_micro(y_true: np.ndarray, y_pred: np.ndarray) -> float:
+    """sklearn's ``f1_score(y_true, y_pred, average="micro")`` for class
+    labels (1-D) or label indicators (2-D): ``2 tp / (|true| + |pred|)``,
+    0 when both are empty."""
+    if y_true.ndim > 1:
+        t, p = y_true > 0.5, y_pred > 0.5
+        tp, n_true, n_pred = np.sum(t & p), np.sum(t), np.sum(p)
+    else:
+        tp, n_true = np.sum(y_true == y_pred), len(y_true)
+        n_pred = n_true
+    denom = n_true + n_pred
+    return float(2 * tp / denom) if denom else 0.0
+
+
+def confusion_matrix(y_true: np.ndarray, y_pred: np.ndarray) -> np.ndarray:
+    """sklearn's ``confusion_matrix``: rows are true labels, columns
+    predicted ones, over the sorted labels that occur in either."""
+    labels = np.union1d(y_true, y_pred)
+    ti, pi = np.searchsorted(labels, y_true), np.searchsorted(labels, y_pred)
+    cm = np.zeros((len(labels), len(labels)), np.int64)
+    np.add.at(cm, (ti, pi), 1)
+    return cm
 
 
 class SpectralTrainer:
-    """Constructor subset of the JAX trainer (reference opt.py:239-316).
-    ``mu`` is a scalar or a callable of the epoch index;
-    ``pow_iter_alpha`` a scalar or a callable of the power-iteration
-    index.  The options of ``_UNPORTED`` raise ``NotImplementedError``
-    when set to anything but their inert value."""
+    """The JAX trainer's constructor (reference opt.py:239-316).  ``mu``
+    is a scalar or a callable of the epoch index; ``pow_iter_alpha`` a
+    scalar or a callable of the power-iteration index.  The options of
+    ``_UNPORTED`` raise ``NotImplementedError`` when set to anything but
+    their inert value, as do ``eigensolver`` other than ``"power"`` and a
+    ``test_func`` asking for sigmoid outputs or AUC."""
 
     def __init__(
         self,
@@ -68,7 +119,11 @@ class SpectralTrainer:
         mu: Union[float, Callable[[int], float]] = 0.0,
         K: float = 0.0,
         Kmin: float = 0.0,
+        eps: float = -1.0,
         pow_iter_eps: float = 1e-3,
+        batch_size: int = 128,
+        min_iter: int = 10,
+        max_iter: int = 100,
         max_pow_iter: int = 1000,
         pow_iter: bool = True,
         ignore_bad_vals: bool = True,
@@ -76,23 +131,34 @@ class SpectralTrainer:
         pow_iter_alpha: Union[float, Callable] = 1.0,
         pow_iter_momentum: Optional[float] = None,
         eigensolver: str = "power",
+        lanczos_m: Optional[int] = None,
         gradg_clip: Optional[float] = None,
+        best_h: bool = False,
+        btch_h: bool = False,
+        verbose: bool = False,
+        header: str = "",
+        test_func: str = "maxacc",
         lobpcg: bool = False,
+        kfac_rand: bool = True,
+        kfac_ema: bool = False,
         precond_builder: Optional[Callable] = None,
+        kfac_batch: int = 1,
         mesh=None,
         seed: int = 1226,
         mem_track: bool = False,
         remat: bool = False,
         hvp_micro: int = 0,
+        defer_metrics: bool = False,
         scan_steps: int = 1,
         donate: bool = False,
+        full_ckpt: bool = False,
         profile_dir: Optional[str] = None,
+        profile_epoch: int = 0,
+        log_dir: str = "./logs",
+        model_dir: str = "./models",
         device=None,
     ):
-        given = dict(lobpcg=lobpcg, precond_builder=precond_builder,
-                     scan_steps=scan_steps, mesh=mesh, remat=remat,
-                     donate=donate, mem_track=mem_track,
-                     profile_dir=profile_dir, rand_init=rand_init)
+        given = locals()
         for name, inert in _UNPORTED.items():
             if given[name] != inert:
                 raise NotImplementedError(
@@ -100,6 +166,9 @@ class SpectralTrainer:
         if eigensolver != "power":
             raise NotImplementedError(
                 f"SpectralTrainer(eigensolver={eigensolver!r}) is not ported")
+        if any(t in test_func for t in _UNPORTED_TEST_FUNC):
+            raise NotImplementedError(
+                f"SpectralTrainer(test_func={test_func!r}) is not ported")
         self.device = resolve_device(device)
         self.task = task
         self.optimizer = optimizer
@@ -107,25 +176,68 @@ class SpectralTrainer:
         self.mu = mu
         self.K = float(K)
         self.Kmin = float(Kmin)
+        self.eps = eps
         self.pow_iter_eps = pow_iter_eps
+        self.batch_size = batch_size
+        self.min_iter = min_iter
+        self.max_iter = max_iter
         self.max_pow_iter = max_pow_iter
         self.pow_iter = pow_iter
         self.ignore_bad_vals = ignore_bad_vals
         self.pow_iter_alpha = pow_iter_alpha
         self.pow_iter_momentum = pow_iter_momentum
         self.gradg_clip = gradg_clip
+        self.best_h_val = best_h
+        self.verbose = verbose
+        self.test_func = test_func
         self.hvp_micro = int(hvp_micro)
+        # defer_metrics: commit every step and check the gradient norms
+        # once per epoch, restoring the epoch-start state on a non-finite
+        # one (ignored when verbose, whose per-batch lines need the values)
+        self.defer_metrics = defer_metrics
+        # a save_full checkpoint at every epoch end, for an exact resume
+        self.full_ckpt = full_ckpt
+        self.seed = seed
         self.generator = torch.Generator().manual_seed(seed)
+        self._np_rng = np.random.default_rng(seed)
+        self.log_dir = log_dir
+        self.model_dir = model_dir
+
+        # file stem: header_OptName[_btchN]_muM_KX[_KminY] (opt.py:290-302)
+        mname = "Func" if callable(mu) else str(mu)
+        self.header = header
+        self.header2 = f"{header}_{optimizer.name}"
+        self.header2 += f"_btch{batch_size}" if btch_h else ""
+        self.header2 += f"_mu{mname}_K{K}"
+        self.header2 += f"_Kmin{Kmin}" if Kmin > 0 else ""
+        self.log_file = os.path.join(log_dir, self.header2 + ".log")
+        self.verbose_log_file = os.path.join(log_dir, self.header2 + "_verbose.log")
 
         self.params = None
         self.model_state = None
         self.opt_state = None
         self.v = None
         self.i = 0  # epoch counter
+        self.f = 0.0
+        self.g = 0.0
+        self.h = 0.0
         self.rho = 0.0
         self.norm = 0.0
-        self.g = 0.0
+        self.val_acc = 0.0
+        self.best_val_acc = 0.0
+        self.best_h = 0.0
+        self.best_rho = 0.0
+        self.best_iter = 0
+        # power iterations of each step of the last epoch, and their mean
+        self.epoch_pow_iters: List[int] = []
+        self.mean_pow_iters = float("nan")
+        self._h_hist: List[float] = []
+        self._resume_epoch = 0
+        self.timers = Timers()
 
+    # ------------------------------------------------------------------
+    # state
+    # ------------------------------------------------------------------
     def init_state(self) -> None:
         """Draw fresh parameters from the trainer's seed; set up the
         optimizer state and the uniform start vector."""
@@ -143,6 +255,12 @@ class SpectralTrainer:
         """Batch (numpy arrays or tensors) to tensors on the trainer's device."""
         return {k: torch.as_tensor(v, device=self.device) for k, v in batch.items()}
 
+    def _mu_now(self) -> float:
+        return float(self.mu(self.i) if callable(self.mu) else self.mu)
+
+    # ------------------------------------------------------------------
+    # one step
+    # ------------------------------------------------------------------
     def _step_body(self, params, model_state, opt_state, v, batch, mu):
         """Pure per-batch step: returns ``(params, model_state, opt_state,
         v, metrics)`` with the metrics as device tensors."""
@@ -158,11 +276,7 @@ class SpectralTrainer:
 
         gradf_norm = tree_norm(grads_f)
         if self.pow_iter:
-            eig = eigen.estimate_dominant_eig(
-                hvp_fn, v, eps=self.pow_iter_eps, max_iter=self.max_pow_iter,
-                alpha=self.pow_iter_alpha, ignore_bad_vals=self.ignore_bad_vals,
-                momentum=self.pow_iter_momentum,
-            )
+            eig = self._eig(hvp_fn, v)
             sg = spectral.penalty_and_grad(
                 loss_fn, params, batch, eig.v, eig.rho, K=self.K,
                 Kmin=self.Kmin, gradg_clip=self.gradg_clip,
@@ -187,27 +301,42 @@ class SpectralTrainer:
         new_params, new_opt_state = self.optimizer.step(direction, opt_state,
                                                         params)
         # BN running statistics at the PRE-step params (opt.py:180-186, 421)
-        if self.task.has_batch_stats:
-            _, new_model_state = self.task.train_loss(params, model_state, batch)
-        else:
-            new_model_state = model_state
+        new_model_state = self._advance_stats(params, model_state, batch)
         return new_params, new_model_state, new_opt_state, new_v, metrics
 
-    def train_step(self, batch: Dict[str, Any],
-                   mu: Optional[float] = None) -> Dict[str, Any]:
+    def _eig(self, hvp_fn, v):
+        return eigen.estimate_dominant_eig(
+            hvp_fn, v, eps=self.pow_iter_eps, max_iter=self.max_pow_iter,
+            alpha=self.pow_iter_alpha, ignore_bad_vals=self.ignore_bad_vals,
+            momentum=self.pow_iter_momentum,
+        )
+
+    def _advance_stats(self, params, model_state, batch):
+        if not self.task.has_batch_stats:
+            return model_state
+        return self.task.train_loss(params, model_state, batch)[1]
+
+    def train_step(self, batch: Dict[str, Any], mu: Optional[float] = None,
+                   fetch: bool = True) -> Dict[str, Any]:
         """Run ONE spectral-regularized step on ``batch`` and commit the
         new ``(params, model_state, opt_state, v)``.
 
         Returns the metrics as host values plus ``step_ok``.  A step whose
         gradient norms are not finite is NOT committed (the caller
-        decides on a rollback, opt.py:696-708)."""
+        decides on a rollback, opt.py:696-708).  ``fetch=False`` (the
+        ``defer_metrics`` path) commits unconditionally and returns the
+        tensor metrics on the device, unread."""
         if self.params is None:
             self.init_state()
         if mu is None:
-            mu = self.mu(self.i) if callable(self.mu) else self.mu
+            mu = self._mu_now()
         out = self._step_body(self.params, self.model_state, self.opt_state,
                               self.v, self.put_batch(batch), float(mu))
         new_params, new_model_state, new_opt_state, new_v, metrics = out
+        if not fetch:
+            self.params, self.model_state = new_params, new_model_state
+            self.opt_state, self.v = new_opt_state, new_v
+            return metrics
         # one device-to-host transfer for all tensor metrics
         keys = [k for k, m in metrics.items() if isinstance(m, torch.Tensor)]
         values = torch.stack([metrics[k].to(torch.float64) for k in keys]).tolist()
@@ -224,3 +353,339 @@ class SpectralTrainer:
             self.g = metrics["g"]
         metrics["step_ok"] = step_ok
         return metrics
+
+    def _rho_step(self, batch):
+        """comp_rho without an optimizer step (epoch-end ``g``, rho_test):
+        the full-batch cached linearization even when ``hvp_micro > 1``,
+        then the BN running statistics advance, as the reference's
+        train-mode forward does (opt.py:421, 882-910).  Returns ``(eig,
+        new_model_state)``."""
+        loss_fn = self.task.loss_fn(self.model_state)
+        _, hvp_fn = curvature.linearize_hvp(loss_fn, self.params, batch)
+        eig = self._eig(hvp_fn, self.v)
+        return eig, self._advance_stats(self.params, self.model_state, batch)
+
+    # ------------------------------------------------------------------
+    # epoch loop (reference iter(), opt.py:580-763)
+    # ------------------------------------------------------------------
+    def iter_epoch(self, train_loader: ArrayLoader) -> None:
+        mu = self._mu_now()
+        rbatch = int(self._np_rng.integers(0, max(len(train_loader), 1)))
+        rdata = None
+        vlog: List[str] = []
+        istart = time.perf_counter()
+        defer = self.defer_metrics and not self.verbose
+        deferred: List[Dict[str, Any]] = []
+        self.epoch_pow_iters = []
+        if defer:
+            # the recovery point if a deferred step turns out non-finite:
+            # steps return new tensors, so holding the old dicts is a copy
+            snapshot = (self.params, self.model_state, self.opt_state, self.v)
+        for j, data in enumerate(train_loader):
+            if j == rbatch:
+                rdata = data
+            with self.timers("G"):
+                metrics = self.train_step(data, mu=mu, fetch=not defer)
+            self.epoch_pow_iters.append(metrics["pow_iters"])
+            if defer:
+                deferred.append(metrics)
+                continue
+            # NaN rollback: reload the last epoch checkpoint (opt.py:696-708)
+            if not metrics["step_ok"]:
+                ckpt = os.path.join(self.model_dir, self.header2 + CKPT)
+                if os.path.exists(ckpt):
+                    self.model_load(ckpt)
+                continue
+            if self.verbose:
+                vlog.append(f"{j}\t {self.rho:f}\t {self.norm:f}\t "
+                            f"{metrics['gradf_norm']:f}\t "
+                            f"{metrics['gradg_norm']:f}")
+        if defer and deferred:
+            # ONE host read per epoch; on any non-finite step restore the
+            # epoch-start state (params AND optimizer buffers)
+            norms = torch.stack([torch.stack([m["gradf_norm"], m["gradg_norm"]])
+                                 for m in deferred])
+            if not bool(torch.isfinite(norms).all()):
+                self.params, self.model_state, self.opt_state, self.v = snapshot
+
+        if self.epoch_pow_iters:
+            self.mean_pow_iters = float(np.mean(self.epoch_pow_iters))
+        if self.verbose:
+            os.makedirs(self.log_dir, exist_ok=True)
+            with open(self.verbose_log_file, "w" if self.i == 0 else "a") as fh:
+                if self.i == 0:
+                    fh.write("batch\t rho\t norm\t gradf\t gradg\n")
+                fh.write("\n".join(vlog) + "\n")
+
+        # epoch end: weighted-mean f over all batches in eval mode
+        # (opt.py:730-739), g on one random batch (opt.py:740)
+        with self.timers("Test"):
+            f_sum, w_sum = 0.0, 0.0
+            for data in train_loader:
+                loss, _ = self.task.eval_loss(self.params, self.model_state,
+                                              self.put_batch(data))
+                bw = float(np.sum(data["w"]))
+                f_sum = f_sum + loss * bw
+                w_sum += bw
+            self.f = float(f_sum) / max(w_sum, 1.0)
+
+        if self.pow_iter and rdata is not None:
+            eig, self.model_state = self._rho_step(self.put_batch(rdata))
+            self.v = eig.v
+            self.rho = float(eig.rho)
+            self.norm = float(eig.norm)
+            self.g = float(spectral.penalty(
+                torch.tensor(self.rho, dtype=torch.float64), self.K, self.Kmin))
+        self.h = self.f + mu * self.g
+
+        if self.scheduler is not None:
+            lr = self.scheduler.step(self.f)
+            self.opt_state = self.optimizer.set_learning_rate(self.opt_state, lr)
+
+        self.timers.totals["Iteration"] = (self.timers.totals.get("Iteration", 0.0)
+                                           + time.perf_counter() - istart)
+        if self.verbose:
+            with open(self.verbose_log_file, "a") as fh:
+                fh.write(self.timers.report(["G", "Test", "Iteration"]) + "\n")
+
+    # ------------------------------------------------------------------
+    # full training (reference train(), opt.py:771-871)
+    # ------------------------------------------------------------------
+    def train(self, inputs=None, target=None, inputs_valid=None,
+              target_valid=None, train_loader: Optional[ArrayLoader] = None,
+              valid_loader: Optional[ArrayLoader] = None,
+              train_loader_na: Optional[ArrayLoader] = None,
+              crops: bool = False):
+        start = time.time()
+        if train_loader is None:
+            if inputs is None or target is None:
+                raise ValueError("No input data")
+            train_loader = _as_loader((inputs, target), self.batch_size)
+        if valid_loader is None and inputs_valid is not None:
+            valid_loader = _as_loader((inputs_valid, target_valid), self.batch_size)
+
+        # the JAX trainer draws an example batch here; drawing it too keeps
+        # a shuffling loader's order the same in both
+        next(iter(train_loader))
+        self.init_state()
+
+        os.makedirs(self.log_dir, exist_ok=True)
+        os.makedirs(self.model_dir, exist_ok=True)
+        has_valid = valid_loader is not None
+        start_epoch, self._resume_epoch = self._resume_epoch, 0
+        if start_epoch == 0 or not os.path.exists(self.log_file):
+            with open(self.log_file, "w") as fh:
+                fh.write("epoch\t f\t rho\t h\t norm"
+                         + ("\t val_acc\t val_f1" if has_valid else "") + "\n")
+        if start_epoch == 0:
+            self._h_hist = []
+        for self.i in range(start_epoch, self.max_iter):
+            self.iter_epoch(train_loader)
+            self.save()
+
+            row = f"{self.i}\t {self.f:f}\t {self.rho:f}\t {self.h:f}\t {self.norm:f}"
+            if has_valid:
+                _, self.val_acc, val_f1 = self.test_model(loader=valid_loader)
+                if self.val_acc is None:  # 'conf': no accuracy, no best model
+                    self.val_acc, val_f1 = float("nan"), float("nan")
+                # best_h compares with `>` though h is minimised: the
+                # reference's rule (opt.py:821-825)
+                if self.best_h_val and self.h > self.best_h:
+                    self.best_h = self.h
+                    self._new_best()
+                elif not self.best_h_val and self.val_acc > self.best_val_acc:
+                    self.best_val_acc = self.val_acc
+                    self._new_best()
+                row += f"\t {self.val_acc:f}\t {val_f1:f}"
+            with open(self.log_file, "a") as fh:
+                fh.write(row + "\n")
+            self._h_hist.append(float(self.h))
+            # after the append, so the checkpoint's CoV window holds this
+            # epoch (the JAX trainer saves first, and a resume from its
+            # per-epoch checkpoint misses the last h)
+            if self.full_ckpt:
+                self.save_full()
+
+            # coefficient-of-variation stop over the last 10 h
+            # (opt.py:841-845); eps defaults to -1, which never stops
+            if self.i >= self.min_iter - 1 and len(self._h_hist) >= 2:
+                window = self._h_hist[-10:]
+                if float(np.std(window) / np.abs(np.mean(window))) <= self.eps:
+                    break
+
+        elapsed = time.time() - start
+        with open(self.log_file, "a") as fh:
+            fh.write(f"Time elapsed: {elapsed // 3600:2.0f} hrs, "
+                     f"{(elapsed % 3600) // 60:2.0f} min, {elapsed % 60:4.2f} sec\n")
+            fh.write(f"Best Iterate: {self.best_iter}\n")
+            if self.best_h_val:
+                fh.write(f"Best H: {self.best_h}\n")
+            else:
+                fh.write(f"Best Validation Accuracy: {self.best_val_acc}\n")
+            fh.write(f"Rho: {self.best_rho}\n")
+
+        # the best model on the train set (opt.py:868-871)
+        if has_valid:
+            self.test_set(loader=train_loader_na if train_loader_na is not None
+                          else train_loader, label="Train", crops=crops)
+
+    def _new_best(self):
+        self.best_rho = self.rho
+        self.best_iter = self.i
+        self.save(CKPT_BEST)
+
+    # ------------------------------------------------------------------
+    # evaluation (reference test_model, opt.py:912-1039)
+    # ------------------------------------------------------------------
+    def test_model(self, x=None, y=None, loader=None, classes=None,
+                   model_classes=None, other_classes=None, crops: bool = False):
+        """``(loss, accuracy %, micro-F1)`` over ``loader``, each the mean
+        of per-batch values weighted by the batch's real rows; with
+        ``'conf'`` in ``test_func`` the confusion matrix goes to
+        ``<header2>_conf_matrix.csv`` and accuracy and F1 are None."""
+        for name, val in (("classes", classes), ("model_classes", model_classes),
+                          ("other_classes", other_classes), ("crops", crops)):
+            if val:
+                raise NotImplementedError(f"test_model({name}=...) is not ported")
+        if loader is None:
+            loader = _as_loader((x, y), self.batch_size)
+        conf = "conf" in self.test_func
+        f_list, acc_list, f1_list, sizes = [], [], [], []
+        predicted_all, labels_all = [], []
+        for data in loader:
+            nreal = int(np.sum(np.asarray(data["w"]) > 0))
+            ops = self.task.predict(self.params, self.model_state,
+                                    self.put_batch(data)).cpu().numpy()[:nreal]
+            target = np.asarray(data["y"])[:nreal]
+            sizes.append(nreal)
+            f_list.append(float(self.task.loss(torch.from_numpy(ops),
+                                               torch.from_numpy(target), None)))
+            if "max" in self.test_func:
+                predicted = np.argmax(ops, axis=1)
+            else:
+                predicted = (ops > 0.5).astype(np.float32)
+            if "acc" in self.test_func:
+                acc_list.append(float(np.mean(predicted == target)) * 100)
+            if conf:
+                predicted_all.append(predicted)
+                labels_all.append(target)
+            else:
+                f1_list.append(f1_micro(target, predicted))
+        if conf:
+            cm = confusion_matrix(np.concatenate(labels_all),
+                                  np.concatenate(predicted_all))
+            os.makedirs(self.log_dir, exist_ok=True)
+            np.savetxt(os.path.join(self.log_dir, self.header2 + "_conf_matrix.csv"),
+                       cm, delimiter=",")
+            test_acc = test_f1 = None
+        else:
+            test_acc = float(np.average(acc_list, weights=sizes))
+            test_f1 = float(np.average(f1_list, weights=sizes))
+        return float(np.average(f_list, weights=sizes)), test_acc, test_f1
+
+    def test_model_best(self, x=None, y=None, loader=None, fname=None, **kw):
+        self.model_load(fname)
+        return self.test_model(x, y, loader, **kw)
+
+    def test_set(self, x=None, y=None, loader=None, fname=None, label="Train", **kw):
+        loss, acc, f1 = self.test_model_best(x, y, loader, fname, **kw)
+        with open(self.log_file, "a") as fh:
+            fh.write(f"{label} Loss: {loss}\n")
+            fh.write(f"{label} Accuracy: {acc}\n")
+            fh.write(f"{label} F1: {f1}\n")
+        return loss, acc, f1
+
+    def rho_test(self, x=None, y=None, loader=None, fname=None):
+        """``rho`` on every batch of ``loader`` (opt.py:882-910): writes
+        ``<header2>_rho_test.csv`` with rows ``batch, rho, norm, iters,
+        res_change, seconds`` and returns the columns after the first,
+        averaged with the batches' weights."""
+        if fname is not None:
+            self.model_load(fname)
+        if loader is None:
+            loader = _as_loader((x, y), self.batch_size)
+        rows, sizes = [], []
+        for j, data in enumerate(loader):
+            batch = self.put_batch(data)
+            t0 = time.perf_counter()
+            eig, self.model_state = self._rho_step(batch)
+            rho, norm, res = torch.stack(
+                [eig.rho, eig.norm, eig.res_change]).to(torch.float64).tolist()
+            dt = time.perf_counter() - t0
+            self.v = eig.v
+            rows.append([j, rho, norm, eig.iters, res, dt])
+            sizes.append(float(np.sum(data["w"])))
+        arr = np.asarray(rows, dtype=float)
+        os.makedirs(self.log_dir, exist_ok=True)
+        np.savetxt(os.path.join(self.log_dir, self.header2 + "_rho_test.csv"),
+                   arr, delimiter=",")
+        return np.average(arr, axis=0, weights=sizes)[1:]
+
+    # ------------------------------------------------------------------
+    # checkpoints (opt.py:765-769, 1041-1071)
+    # ------------------------------------------------------------------
+    def save(self, tail: str = CKPT):
+        checkpoints.save_checkpoint(
+            os.path.join(self.model_dir, self.header2 + tail),
+            {"params": self.params, "model_state": self.model_state,
+             "v": self.v, "epoch": self.i})
+
+    def save_full(self, tail: str = CKPT_FULL):
+        """Everything an exact resume needs: ``save``'s payload plus the
+        optimizer state, the best-model tracking and the CoV window."""
+        checkpoints.save_checkpoint(
+            os.path.join(self.model_dir, self.header2 + tail),
+            {"params": self.params, "model_state": self.model_state,
+             "opt_state": self.opt_state, "v": self.v, "epoch": self.i,
+             "best": [self.best_val_acc, self.best_h, self.best_rho,
+                      float(self.best_iter)],
+             "h_hist": list(self._h_hist)})
+
+    def resume(self, fname: Optional[str] = None):
+        """Restore a ``save_full`` checkpoint; the next ``train()``
+        continues from the epoch after it."""
+        self.init_state()
+        if fname is None:
+            fname = os.path.join(self.model_dir, self.header2 + CKPT_FULL)
+        payload = checkpoints.load_checkpoint(fname)
+        self._load_state(payload)
+        self.opt_state = checkpoints.restore_like(self.opt_state, payload["opt_state"])
+        self.i = int(payload["epoch"])
+        b = payload["best"]
+        self.best_val_acc, self.best_h = float(b[0]), float(b[1])
+        self.best_rho, self.best_iter = float(b[2]), int(b[3])
+        self._h_hist = [float(h) for h in payload["h_hist"]]
+        self._resume_epoch = self.i + 1
+
+    def model_load(self, fname: Optional[str] = None):
+        """Load a checkpoint's parameters, BN statistics and eigenvector;
+        by default the best model, else the last epoch's."""
+        self.init_state()
+        if fname is None:
+            fname = os.path.join(self.model_dir, self.header2 + CKPT_BEST)
+            if not os.path.exists(fname):
+                fname = os.path.join(self.model_dir, self.header2 + CKPT)
+        self._load_state(checkpoints.load_checkpoint(fname))
+
+    def _load_state(self, payload):
+        self.params = checkpoints.restore_like(self.params, payload["params"])
+        self.model_state = checkpoints.restore_like(self.model_state,
+                                                    payload["model_state"])
+        self.v = checkpoints.restore_like(self.v, payload["v"])
+
+    # ------------------------------------------------------------------
+    # log summary (reference parse(), opt.py:1244-1257)
+    # ------------------------------------------------------------------
+    def parse(self) -> Dict[str, str]:
+        with open(self.log_file) as fh:
+            lines = fh.readlines()[-10:]
+        out: Dict[str, str] = {}
+        for ln in lines:
+            if ":" in ln:
+                k, _, val = ln.partition(":")
+                out[k.strip().replace(" ", "_")] = val.strip()
+        os.makedirs(self.log_dir, exist_ok=True)
+        with open(os.path.join(self.log_dir, self.header2 + "_summary.tsv"), "w") as fh:
+            fh.write("\t".join(out.keys()) + "\n")
+            fh.write("\t".join(out.values()) + "\n")
+        return out

@@ -9,6 +9,14 @@ the final ``bn1`` is ``BatchNorm_0`` and ``fc`` is ``fc``.  Convs are
 OIHW here and HWIO there; the classifier is ``(out, in)`` here and
 ``(in, out)`` there.  The final pool leaves a 1x1 map, so the flatten
 before ``fc`` needs no column permutation.
+
+``ForestNet`` and ``CNNUSPS`` keep the reference torch names too: flax
+``fc1``/``fc2``/``fc3`` and ``Conv_0..2``/``Dense_0..1`` map to
+``fc1..3`` and ``conv1..3``/``fc1``/``fc2``, the maps of
+``torch_interop.convert_forestnet_state_dict`` and
+``convert_cnnusps_state_dict``.  CNNUSPS's ``fc1`` reads a (32, 2, 2) map
+flattened CHW here and HWC there, so its columns are permuted as
+``torch_interop.dense_after_flatten_from_torch`` does.
 """
 
 from __future__ import annotations
@@ -19,6 +27,14 @@ import numpy as np
 import torch
 
 Tree = Dict[str, torch.Tensor]
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, order="C"))
+
+
+def _a(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy()
 
 
 def _densenet3_pairs(n_blocks: int) -> Iterator[Tuple[str, Tuple[str, ...], str]]:
@@ -58,21 +74,20 @@ def densenet3_from_jax(params, batch_stats) -> Tuple[Tree, Tree]:
     array leaves) -> the port's ``(params, model_state)`` as CPU tensors
     of the same dtype."""
     n_blocks = sum(k.startswith("BottleneckBlock_") for k in params) // 3
-    t = lambda a: torch.from_numpy(np.array(a, order="C"))
     p, s = {}, {}
     for name, path, kind in _densenet3_pairs(n_blocks):
         src = _get(params, path)
         if kind == "conv":
-            p[f"{name}.weight"] = t(np.asarray(src["kernel"]).transpose(3, 2, 0, 1))
+            p[f"{name}.weight"] = _t(np.asarray(src["kernel"]).transpose(3, 2, 0, 1))
         elif kind == "dense":
-            p[f"{name}.weight"] = t(np.asarray(src["kernel"]).T)
-            p[f"{name}.bias"] = t(src["bias"])
+            p[f"{name}.weight"] = _t(np.asarray(src["kernel"]).T)
+            p[f"{name}.bias"] = _t(src["bias"])
         else:
             stats = _get(batch_stats, path)
-            p[f"{name}.weight"] = t(src["scale"])
-            p[f"{name}.bias"] = t(src["bias"])
-            s[f"{name}.running_mean"] = t(stats["mean"])
-            s[f"{name}.running_var"] = t(stats["var"])
+            p[f"{name}.weight"] = _t(src["scale"])
+            p[f"{name}.bias"] = _t(src["bias"])
+            s[f"{name}.running_mean"] = _t(stats["mean"])
+            s[f"{name}.running_var"] = _t(stats["var"])
     return p, s
 
 
@@ -80,19 +95,75 @@ def densenet3_to_jax(params: Tree, model_state: Tree):
     """The port's ``(params, model_state)`` -> flax ``(params,
     batch_stats)`` as nested dicts of numpy arrays."""
     n_blocks = sum(k.endswith(".conv2.weight") for k in params) // 3
-    a = lambda x: x.detach().cpu().numpy()
     fp, fs = {}, {}
     for name, path, kind in _densenet3_pairs(n_blocks):
         if kind == "conv":
             _set(fp, path, {"kernel": np.ascontiguousarray(
-                a(params[f"{name}.weight"]).transpose(2, 3, 1, 0))})
+                _a(params[f"{name}.weight"]).transpose(2, 3, 1, 0))})
         elif kind == "dense":
             _set(fp, path, {"kernel": np.ascontiguousarray(
-                a(params[f"{name}.weight"]).T),
-                "bias": a(params[f"{name}.bias"])})
+                _a(params[f"{name}.weight"]).T),
+                "bias": _a(params[f"{name}.bias"])})
         else:
-            _set(fp, path, {"scale": a(params[f"{name}.weight"]),
-                            "bias": a(params[f"{name}.bias"])})
-            _set(fs, path, {"mean": a(model_state[f"{name}.running_mean"]),
-                            "var": a(model_state[f"{name}.running_var"])})
+            _set(fp, path, {"scale": _a(params[f"{name}.weight"]),
+                            "bias": _a(params[f"{name}.bias"])})
+            _set(fs, path, {"mean": _a(model_state[f"{name}.running_mean"]),
+                            "var": _a(model_state[f"{name}.running_var"])})
     return fp, fs
+
+
+def forestnet_from_jax(params) -> Tree:
+    """flax params of ``models.ForestNet`` -> the port's params."""
+    p = {}
+    for name in ("fc1", "fc2", "fc3"):
+        p[f"{name}.weight"] = _t(np.asarray(params[name]["kernel"]).T)
+        p[f"{name}.bias"] = _t(params[name]["bias"])
+    return p
+
+
+def forestnet_to_jax(params: Tree):
+    """The port's ForestNet params -> flax params as numpy."""
+    return {name: {"kernel": np.ascontiguousarray(_a(params[f"{name}.weight"]).T),
+                   "bias": _a(params[f"{name}.bias"])}
+            for name in ("fc1", "fc2", "fc3")}
+
+
+_CNNUSPS_CONVS = (("Conv_0", "conv1"), ("Conv_1", "conv2"), ("Conv_2", "conv3"))
+_CNNUSPS_FC1_CHW = (32, 2, 2)
+
+
+def cnnusps_from_jax(params) -> Tree:
+    """flax params of ``models.CNNUSPS`` -> the port's params; ``Dense_0``'s
+    rows go from HWC to CHW order."""
+    p = {}
+    for src, dst in _CNNUSPS_CONVS:
+        p[f"{dst}.weight"] = _t(np.asarray(params[src]["kernel"]).transpose(3, 2, 0, 1))
+        p[f"{dst}.bias"] = _t(params[src]["bias"])
+    c, h, w = _CNNUSPS_FC1_CHW
+    k = np.asarray(params["Dense_0"]["kernel"])  # (H*W*C, out), rows HWC
+    out = k.shape[1]
+    p["fc1.weight"] = _t(k.T.reshape(out, h, w, c).transpose(0, 3, 1, 2)
+                         .reshape(out, c * h * w))
+    p["fc1.bias"] = _t(params["Dense_0"]["bias"])
+    p["fc2.weight"] = _t(np.asarray(params["Dense_1"]["kernel"]).T)
+    p["fc2.bias"] = _t(params["Dense_1"]["bias"])
+    return p
+
+
+def cnnusps_to_jax(params: Tree):
+    """The port's CNNUSPS params -> flax params as numpy (inverse of
+    :func:`cnnusps_from_jax`)."""
+    fp = {}
+    for dst, src in _CNNUSPS_CONVS:
+        fp[dst] = {"kernel": np.ascontiguousarray(
+            _a(params[f"{src}.weight"]).transpose(2, 3, 1, 0)),
+            "bias": _a(params[f"{src}.bias"])}
+    c, h, w = _CNNUSPS_FC1_CHW
+    wt = _a(params["fc1.weight"])  # (out, C*H*W), columns CHW
+    out = wt.shape[0]
+    fp["Dense_0"] = {"kernel": np.ascontiguousarray(
+        wt.reshape(out, c, h, w).transpose(0, 2, 3, 1).reshape(out, h * w * c).T),
+        "bias": _a(params["fc1.bias"])}
+    fp["Dense_1"] = {"kernel": np.ascontiguousarray(_a(params["fc2.weight"]).T),
+                     "bias": _a(params["fc2.bias"])}
+    return fp

@@ -125,3 +125,25 @@ def test_train_step_on_the_card(cuda):
         out[dev] = to(curvature.hvp(loss, to(tr.params, dev), b, to(v, dev)), "cpu")
     rel = float(tree_norm(tree_sub(out["cuda"], out["cpu"])) / tree_norm(out["cpu"]))
     assert rel < 1e-9
+
+
+def test_driver_run_forest_on_the_card(cuda, tmp_path):
+    """``driver.run`` on ``forest_best`` at full width, cut to 4 train
+    batches: two epochs, the test cascade and ``rho_test`` on the card."""
+    from optwboundeigenval_tpu_torch.configs import forest_best
+    from optwboundeigenval_tpu_torch.train import driver
+
+    opts = forest_best.options(max_iter=2, rho_test=True,
+                               log_dir=str(tmp_path / "logs"),
+                               model_dir=str(tmp_path / "models"))
+    for k, n in (("inputs", 512), ("target", 512), ("inputs_valid", 256),
+                 ("target_valid", 256), ("inputs_test", 256), ("target_test", 256)):
+        opts[k] = opts[k][:n]
+    tr = driver.run(opts)
+    assert tr.device.type == "cuda" and all(p.is_cuda for p in tr.params.values())
+    lines = open(tr.log_file).read().splitlines()
+    rows = [ln.split() for ln in lines[1:] if ln[:1].isdigit()]
+    assert len(rows) == 2 and np.isfinite(np.asarray(rows, float)).all()
+    assert any(ln.startswith("Test Accuracy: ") for ln in lines)
+    rho = np.loadtxt(tmp_path / "logs" / (tr.header2 + "_rho_test.csv"), delimiter=",")
+    assert rho.shape == (4, 6) and np.isfinite(rho).all()
