@@ -19,8 +19,8 @@ Phases (any failure exits non-zero and prints no result line):
    driver and run for 5 ``train_step``s; each step must launch K1 once per
    micro-batched accumulate, ``(pow_iters + 2) * hvp_micro`` times;
 5. one more step under ``torch.profiler``: the device's busy share and
-   the kernels that take the time (also after phases 7 and 8, on a step of
-   each model);
+   the kernels that take the time (also after the runs of phases 7, 8, 10
+   and 11, on a step of each);
 6. the card against the CPU: HVP and vGHv at the trained weights,
    micro-batched through K1 in float32 and float64, and float64 on the
    first micro-batch, on the card vs float64 with the port on the CPU;
@@ -42,9 +42,31 @@ Phases (any failure exits non-zero and prints no result line):
    (``curvature.hvp``) for ForestNet, CNNUSPS (batch 128) and DenseNet-40
    (batch 32): float64 on the card vs the CPU's float64 closure, and the
    set-up and per-HVP times of both on the card, beside one vGHv pass;
-10. a ``{"kernels": [...]}`` line (K1's launches summed over phases 4, 7
-    and 8, each counted from 0 just before its run), the card's name and
-    power limit, and last the ``{"ok": true, "device": ...}`` line.
+10. the published DenseNet-40 recipe: ``cifar10_densenet_mu0_01_K0`` with
+    no override but ``max_iter=1`` (augmentation, ``remat``,
+    ``defer_metrics``, power iteration at ``pow_iter_eps`` 0.05) through
+    ``driver.run`` on the first 256 rows of each split (8 steps; a cut for
+    the time limit only, the train loader keeping its augmentation), then
+    the same epoch with ``remat=False``: s/epoch, steps/s, mean
+    ``pow_iters``, host ms of augmentation per batch and peak device
+    memory of each; a float64 ``train_step`` from one state with remat on
+    and off on the card and with remat on the CPU, which must agree; and 2
+    steps with ``hvp_micro=2`` under remat, K1 launching ``hvp_micro *
+    (pow_iters + 2)`` times a step;
+11. the eigensolvers: ``forest_best`` and ``usps_cnn_mu0_01_K0`` for one
+    epoch with power iteration and with ``eigensolver='auto'`` (which must
+    resolve to the early-exit Lanczos solver), USPS with
+    ``eigensolver='lanczos'`` and with ``rand_init=True``, HVPs per step
+    beside phase 7's power iteration;
+    float64 Lanczos ``rho`` at one batch on the card vs the CPU;
+    ``rho_test_fused`` and ``spectrum_test`` (subspace and Lanczos, k=4)
+    on 4 USPS batches; and the port's plain-autograd HVP and vGHv against
+    ``torch.func`` forms of them (``jvp(grad)`` and ``grad(<jvp(grad), v>)``)
+    on the three models (float64 agreement, float32 times);
+12. a ``{"kernels": [...]}`` line (K1's launches summed over phases 4, 7,
+    8, 10 and 11, each counted from 0 just before its run), the card's
+    name and power limit, and last the ``{"ok": true, "device": ...}``
+    line.
 
 Weights are random (seed 1226); the data are the real sets when they are
 under ``./data``, else their synthetic stand-ins.
@@ -128,6 +150,7 @@ def phase_card():
 
 
 def phase_build():
+    from optwboundeigenval_tpu_torch import native
     from optwboundeigenval_tpu_torch.utils import cuda_build
 
     for old in cuda_build.BUILD_DIR.glob("*.so") if cuda_build.BUILD_DIR.exists() else ():
@@ -136,6 +159,10 @@ def phase_build():
     paths = cuda_build.build(["axpy_accumulate"])
     log(f"build: {time.perf_counter() - t0:.3f} s -> "
         + ", ".join(str(p.name) for p in paths.values()))
+    t0 = time.perf_counter()
+    native.lib()  # the host augmentation (g++), before anything times it
+    log(f"build: augment.cpp with g++ {time.perf_counter() - t0:.3f} s -> "
+        f"{native.library_path().name}")
 
 
 def densenet40_leaf_shapes():
@@ -640,7 +667,7 @@ def _first_batch(mod, rows, **overrides):
 
 def phase_cached_hvp(reps=20):
     """Phase 9: ``linearize_hvp`` (one gradient graph, one reverse pass per
-    HVP) against the closure (``curvature.hvp``, forward-over-reverse from
+    HVP) against the closure (``curvature.hvp``, reverse over reverse from
     scratch per HVP): float64 on the card vs the CPU's float64 closure, and
     both on the card timed, set-up (the gradient) and per HVP."""
     from optwboundeigenval_tpu_torch.configs import (
@@ -691,6 +718,279 @@ def phase_cached_hvp(reps=20):
         log(f"cached hvp {label} on the card (wall, CUDA events): " + "; ".join(timings))
 
 
+class _TimedHook:
+    """A loader's augmentation hook with its host time summed."""
+
+    def __init__(self, hook):
+        self.hook, self.seconds, self.calls = hook, 0.0, 0
+
+    def __call__(self, x, rng):
+        t0 = time.perf_counter()
+        out = self.hook(x, rng)
+        self.seconds += time.perf_counter() - t0
+        self.calls += 1
+        return out
+
+
+def _as_f64(trainer):
+    """The trainer's fresh state in float64, its eigenvector the uniform one."""
+    from optwboundeigenval_tpu_torch.utils.tree import tree_uniform_like
+
+    trainer.init_state()
+    trainer.params = {k: t.double() for k, t in trainer.params.items()}
+    trainer.model_state = {k: t.double() if t.is_floating_point() else t
+                           for k, t in trainer.model_state.items()}
+    trainer.opt_state = trainer.optimizer.init(trainer.params)
+    trainer.v = tree_uniform_like(trainer.params)
+    return trainer
+
+
+def _rel(a, b):
+    """Relative 2-norm error of tree (or tensor) ``a`` against ``b``, on the CPU."""
+    if isinstance(a, torch.Tensor):
+        a, b = {"": a}, {"": b}
+    num = sum(float(((a[k].cpu().double() - b[k].cpu().double()) ** 2).sum()) for k in b)
+    den = sum(float((b[k].cpu().double() ** 2).sum()) for k in b)
+    return math.sqrt(num / den) if den else math.sqrt(num)
+
+
+def phase_recipe(device="cuda", rows=256):
+    """Phase 10: the published DenseNet-40 recipe through ``driver.run``,
+    with remat and without; a float64 step with remat on and off; and 2
+    remat steps with ``hvp_micro=2`` through K1.  Returns K1's launches."""
+    from optwboundeigenval_tpu_torch.configs import cifar10_densenet_mu0_01_K0 as cfg
+    from optwboundeigenval_tpu_torch.data.loaders import ArrayLoader
+    from optwboundeigenval_tpu_torch.ops import pallas_kernels as pk
+    from optwboundeigenval_tpu_torch.train.driver import build_trainer
+
+    cuda = device == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, (label, overrides) in enumerate((("recipe", {}),
+                                                ("recipe remat=False", {"remat": False}))):
+            opts = cfg.options(max_iter=1, device=device, log_dir=f"{tmp}/{i}/logs",
+                               model_dir=f"{tmp}/{i}/models", **overrides)
+            if opts["remat"] != (not overrides) or opts["train_loader"].augment is None:
+                fail(f"{label}: the recipe lost augment or remat")
+            bs, hook = opts["batch_size"], _TimedHook(opts["train_loader"].augment)
+            cut = lambda ld, **kw: ArrayLoader(ld.x[:rows], ld.y[:rows], bs, **kw)
+            opts["train_loader"] = cut(opts["train_loader"], shuffle=True, seed=1226,
+                                       augment=hook)
+            opts["valid_loader"] = cut(opts["valid_loader"])
+            opts["train_loader_na"] = cut(opts["train_loader_na"])
+            opts["test_loader"] = [cut(opts["test_loader"][0])]
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            trainer, batch, n = run_epochs(f"cifar10_densenet_mu0_01_K0 {label}", opts,
+                                           device, 1)
+            launches += n
+            mem = torch.cuda.max_memory_allocated() if cuda else "not measured"
+            log(f"{label}: remat {trainer.remat}, augment {1e3 * hook.seconds / hook.calls:.3f} "
+                f"host ms per batch ({hook.calls} batches of {bs}), "
+                f"pow_iters per step {trainer.epoch_pow_iters}, max_memory_allocated {mem} B")
+            if trainer.remat != (not overrides) or hook.calls == 0:
+                fail(f"{label}: remat {trainer.remat}, augmented {hook.calls} batches")
+            if cuda:
+                phase_profile(trainer, batch, f"cifar10_densenet_mu0_01_K0 {label}")
+
+    # float64 from one state: remat on and off on the card, remat on the CPU
+    batch = next(iter(cfg.options(device="cpu")["train_loader_na"]))
+    steps = {}
+    for label, dev, remat in (("card remat", device, True), ("card no remat", device, False),
+                              ("cpu remat", "cpu", True)):
+        tr = _as_f64(build_trainer(cfg.options(device=dev, remat=remat)))
+        p0 = {k: t.clone() for k, t in tr.params.items()}
+        sync()
+        t0 = time.perf_counter()
+        m = tr.train_step(batch)
+        sync()
+        steps[label] = (m, {k: tr.params[k] - p0[k] for k in p0}, tr.model_state)
+        log(f"float64 step, {label}: rho {m['rho']:.15g} pow_iters {m['pow_iters']} "
+            f"g {m['g']:.15g} gradf_norm {m['gradf_norm']:.15g} gradg_norm "
+            f"{m['gradg_norm']:.15g}, {time.perf_counter() - t0:.2f} s")
+    ref_m, ref_d, ref_s = steps["card remat"]
+    for label in ("card no remat", "cpu remat"):
+        m, d, st = steps[label]
+        errs = {k: abs(m[k] - ref_m[k]) / abs(ref_m[k])
+                for k in ("rho", "g", "gradf_norm", "gradg_norm")}
+        errs["update"], errs["bn_stats"] = _rel(d, ref_d), _rel(st, ref_s)
+        worst = max(errs.values())
+        log(f"float64 step, {label} vs card remat: pow_iters {m['pow_iters']} vs "
+            f"{ref_m['pow_iters']}, relative errors "
+            + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()) + f" (bound {CARD_F64_RTOL:g})")
+        if m["pow_iters"] != ref_m["pow_iters"] or not worst < CARD_F64_RTOL:
+            fail(f"float64 step: {label} and the card's remat step disagree")
+
+    # path (b): remat composed with K1
+    opts = cfg.options(hvp_micro=2, device=device)
+    tr = build_trainer(opts)
+    batches = iter(opts["train_loader"])
+    pk.axpy_accumulate.launches = 0
+    for i in range(2):
+        before = pk.axpy_accumulate.launches
+        sync()
+        t0 = time.perf_counter()
+        m = tr.train_step(next(batches))
+        sync()
+        launched = pk.axpy_accumulate.launches - before
+        want = tr.hvp_micro * (m["pow_iters"] + 2)
+        log(f"remat hvp_micro=2 step {i}: rho {m['rho']:.6g} pow_iters {m['pow_iters']} "
+            f"g {m['g']:.6g} step_ms {1e3 * (time.perf_counter() - t0):.1f} "
+            f"K1_launches {launched} (expected {want})")
+        if not (tr.remat and m["step_ok"] and math.isfinite(m["rho"])):
+            fail(f"remat hvp_micro=2 step {i}: {m}")
+        if cuda and launched != want:
+            fail(f"remat hvp_micro=2 step {i}: {launched} K1 launches, expected {want}")
+    return launches + pk.axpy_accumulate.launches
+
+
+def phase_eigensolvers(power_hvps, device="cuda"):
+    """Phase 11: the Lanczos solvers and ``rand_init`` through
+    ``driver.run``, float64 Lanczos on the card vs the CPU, the two audits,
+    and the curvature products' two forms.  ``power_hvps`` maps a config
+    name to phase 7's mean HVPs per step.  Returns K1's launches."""
+    from optwboundeigenval_tpu_torch.configs import forest_best, usps_cnn_mu0_01_K0
+    from optwboundeigenval_tpu_torch.data.loaders import ArrayLoader
+
+    launches, usps_trainer = 0, None
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, (name, mod, kw, want) in enumerate((
+                ("forest_best", forest_best, {"eigensolver": "power"}, "power"),
+                ("forest_best", forest_best, {"eigensolver": "auto"}, "lanczos_adaptive"),
+                ("usps_cnn_mu0_01_K0", usps_cnn_mu0_01_K0, {"eigensolver": "power"}, "power"),
+                ("usps_cnn_mu0_01_K0", usps_cnn_mu0_01_K0, {"eigensolver": "auto"},
+                 "lanczos_adaptive"),
+                ("usps_cnn_mu0_01_K0", usps_cnn_mu0_01_K0, {"eigensolver": "lanczos"},
+                 "lanczos"),
+                ("usps_cnn_mu0_01_K0", usps_cnn_mu0_01_K0, {"rand_init": True}, "power"))):
+            label = f"{name} " + ", ".join(f"{k}={v}" for k, v in kw.items())
+            opts = mod.options(max_iter=1, device=device, log_dir=f"{tmp}/{i}/logs",
+                               model_dir=f"{tmp}/{i}/models", **kw)
+            tr, b, n = run_epochs(label, opts, device, 1)
+            launches += n
+            if device == "cuda":
+                phase_profile(tr, b, label)
+            log(f"{label}: solver {tr.eigensolver} (lanczos_m {tr.lanczos_m}), mean HVPs "
+                f"per step {tr.mean_pow_iters:.2f}; power iteration in phase 7 (2 epochs): "
+                f"{power_hvps.get(name, float('nan')):.2f}")
+            if tr.eigensolver != want:
+                fail(f"{label}: resolved to {tr.eigensolver}, expected {want}")
+            if i == 3:
+                usps_trainer = tr
+
+        # the audits on 4 batches of USPS, at the auto trainer's weights
+        ld = usps_cnn_mu0_01_K0.options(device="cpu")["train_loader_na"]
+        four = ArrayLoader(ld.x[:512], ld.y[:512], 128)
+        t0 = time.perf_counter()
+        means = usps_trainer.rho_test_fused(loader=four)
+        log(f"rho_test_fused over 4 USPS batches ({usps_trainer.eigensolver}): means rho "
+            f"{means[0]:.6g} norm {means[1]:.6g} iters {means[2]:.2f} res_change "
+            f"{means[3]:.6g} seconds {means[4]:.4f}; {time.perf_counter() - t0:.2f} s")
+        if not np.isfinite(means).all():
+            fail("rho_test_fused: values not finite")
+        for method in ("subspace", "lanczos"):
+            t0 = time.perf_counter()
+            rows = usps_trainer.spectrum_test(loader=four, k=4, method=method)
+            log(f"spectrum_test {method} k=4 over 4 USPS batches: {time.perf_counter() - t0:.2f} s;"
+                f" eigenvalues of batch 0 {rows[0, :4].tolist()}, residuals "
+                f"{rows[0, 4:8].tolist()}, sweeps or HVPs {rows[:, 8].tolist()}")
+            if rows.shape != (4, 9) or not np.isfinite(rows).all():
+                fail(f"spectrum_test {method}: rows {rows.shape} not finite")
+
+    _lanczos_card_vs_cpu(device)
+    _curvature_forms(device)
+    return launches
+
+
+def _lanczos_card_vs_cpu(device):
+    """Float64 Lanczos ``rho`` at one USPS batch: the card against the CPU."""
+    from optwboundeigenval_tpu_torch.configs import usps_cnn_mu0_01_K0
+    from optwboundeigenval_tpu_torch.ops import curvature, eigen
+    from optwboundeigenval_tpu_torch.train.task import Task
+    from optwboundeigenval_tpu_torch.utils.tree import tree_uniform_like
+
+    model, _, batch = _first_batch(usps_cnn_mu0_01_K0, 128)
+    task = Task(model=model)
+    p32, _ = task.init(torch.Generator().manual_seed(1226), torch.device("cpu"))
+    out = {}
+    for dev in (device, "cpu"):
+        p = {k: t.to(dev, torch.float64) for k, t in p32.items()}
+        b = {k: torch.as_tensor(a).to(dev) for k, a in batch.items()}
+        _, hvp_fn = curvature.linearize_hvp(task.loss_fn({}), p, b)
+        for method in ("lanczos", "lanczos_adaptive"):
+            out[dev, method] = eigen.estimate_dominant_eig(
+                hvp_fn, tree_uniform_like(p), eps=1e-3, method=method, lanczos_m=16)
+    for method in ("lanczos", "lanczos_adaptive"):
+        card, cpu = out[device, method], out["cpu", method]
+        rel = abs(float(card.rho) - float(cpu.rho)) / abs(float(cpu.rho))
+        log(f"float64 {method} rho at one USPS batch: card {float(card.rho):.15g} "
+            f"({card.iters} HVPs, converged {card.converged}), cpu {float(cpu.rho):.15g} "
+            f"({cpu.iters}, {cpu.converged}), relative error {rel:.3e} (bound {CARD_F64_RTOL:g})")
+        if not (rel < CARD_F64_RTOL and card.iters == cpu.iters
+                and card.converged == cpu.converged):
+            fail(f"float64 {method}: the card and the CPU disagree")
+
+
+def _func_hvp(loss, p, b, v):
+    """``H v`` by ``torch.func`` forward over reverse, for comparison."""
+    from torch.func import grad, jvp
+
+    return jvp(lambda q: grad(loss)(q, b), (p,), (v,))[1]
+
+
+def _func_vghv(loss, p, b, v):
+    """``v^T (grad H) v`` by ``torch.func``, for comparison."""
+    from torch.func import grad
+
+    from optwboundeigenval_tpu_torch.utils.tree import tree_vdot
+
+    return grad(lambda q: tree_vdot(_func_hvp(loss, q, b, v), v))(p)
+
+
+def _curvature_forms(device, reps=20):
+    """The port's plain-autograd HVP and vGHv against ``torch.func`` forms of
+    them on the three models: float64 agreement on the card, and float32
+    times on the card (CUDA events)."""
+    from optwboundeigenval_tpu_torch.configs import (
+        cifar10_densenet_mu0_01_K0, forest_best, usps_cnn_mu0_01_K0)
+    from optwboundeigenval_tpu_torch.ops import curvature
+    from optwboundeigenval_tpu_torch.train.task import Task
+
+    forms = {"hvp": (curvature.hvp, _func_hvp), "vghv": (curvature.vghv, _func_vghv)}
+    cases = (("ForestNet b128", forest_best, 128, {}),
+             ("CNNUSPS b128", usps_cnn_mu0_01_K0, 128, {}),
+             ("DenseNet-40 b32", cifar10_densenet_mu0_01_K0, 32, {"augment": False}))
+    for label, mod, rows, kw in cases:
+        model, bn, batch = _first_batch(mod, rows, **kw)
+        task = Task(model=model, has_batch_stats=bn)
+        p32, s32 = task.init(torch.Generator().manual_seed(1226), torch.device("cpu"))
+        rng = np.random.default_rng(1226)
+        v = {k: torch.from_numpy(rng.normal(size=tuple(t.shape))) for k, t in p32.items()}
+        times = []
+        for dtype in (torch.float64, torch.float32):
+            to = lambda tree: {k: t.to(device, dtype) if t.is_floating_point() else t.to(device)
+                               for k, t in tree.items()}
+            p, s, vd = to(p32), to(s32), to(v)
+            b = {k: torch.as_tensor(a).to(device) for k, a in batch.items()}
+            loss = task.loss_fn(s)
+            if dtype == torch.float64:
+                for name, (port, func) in forms.items():
+                    rel = _rel(port(loss, p, b, vd), func(loss, p, b, vd))
+                    log(f"curvature forms {label} float64 {name}: autograd vs torch.func "
+                        f"{rel:.3e} (bound {CARD_F64_RTOL:g})")
+                    if not rel < CARD_F64_RTOL:
+                        fail(f"curvature forms {label} {name}: the forms disagree")
+                continue
+            t = {f"{name} {form}": cuda_time_ms(lambda fn=fn: fn(loss, p, b, vd),
+                                                reps if name == "hvp" else 5, 2)
+                 for name, pair in forms.items()
+                 for form, fn in zip(("autograd", "func"), pair)}
+            times.append(", ".join(f"{k} {ms:.3f} ms" for k, ms in t.items()))
+        log(f"curvature forms {label} float32 on the card (wall, CUDA events): "
+            + "; ".join(times))
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs an NVIDIA GPU")
@@ -706,9 +1006,11 @@ def main():
     done("phases 4-5")
     phase_card_vs_cpu(trainer, batch)
     done("phase 6")
+    power_hvps = {}
     for label, (tr, b, n) in phase_epochs().items():
         phase_profile(tr, b, label)
         launches += n
+        power_hvps[label] = tr.mean_pow_iters
     done("phase 7")
     tr, b, n = phase_densenet_epoch()
     phase_profile(tr, b, "cifar10_densenet_mu0_01_K0 epoch trainer")
@@ -716,6 +1018,10 @@ def main():
     done("phase 8")
     phase_cached_hvp()
     done("phase 9")
+    launches += phase_recipe()
+    done("phase 10")
+    launches += phase_eigensolvers(power_hvps)
+    done("phase 11")
     kernels = [{**entry, "launches": launches}]
     log(json.dumps({"kernels": kernels}))
     log(smi)

@@ -5,17 +5,17 @@ of ``train/driver.py``; keyword overrides land in it last, so
 ``key=value`` arguments do.
 
 USPS: params/usps_CNN_mu0_01_K0.py — the CNN, Adam lr 1e-3, batch 128,
-cross entropy, tol 0.001.  ``aug_test=True`` needs the augmented test
-loaders, which are not ported yet, and raises.
+cross entropy, tol 0.001; ``test_loader_aug`` holds the two augmented
+test loaders, which ``aug_test=True`` evaluates.
 
 Forest: params/forest_best.py — the MLP, SGD lr 0.5 with LambdaLR
 ``1 / (1 + k)``, mu 0.0028, K 1, batch 128.
 
 CIFAR-10: params/cifar10_DenseNet_mu0_01_K100.py — DenseNet-40-12, SGD
 lr 0.1 momentum 0.9 weight decay 1e-4, milestone LR 1 / 0.2 / 0.04 at
-epochs 60 / 80, batch 32, pow_iter_eps 0.05, max_pow_iter 100.  The
-defaults are the JAX package's; ``remat=True`` and ``augment=True`` are
-not ported yet and raise until overridden.
+epochs 60 / 80, batch 32, pow_iter_eps 0.05, max_pow_iter 100, with the
+JAX package's defaults ``augment=True``, ``remat=True`` and
+``defer_metrics=True``.
 """
 
 from __future__ import annotations
@@ -52,9 +52,8 @@ def usps_config(
         batch_size=batch_size, augment=augment)
     opt["train_loader_na"] = usps.get_train_loader_na(batch_size=batch_size)
     opt["test_loader"] = [usps.get_test_loader(batch_size=batch_size)]
-    if extra.get("aug_test"):
-        opt["test_loader_aug"] = usps.get_test_loader(batch_size=batch_size,
-                                                      augment=True)
+    opt["test_loader_aug"] = usps.get_test_loader(batch_size=batch_size,
+                                                  augment=True)
     opt["optimizer"] = _make_optimizer(optimizer, default_adam=True)
     opt.update(extra)
     return opt

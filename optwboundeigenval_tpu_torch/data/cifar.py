@@ -4,9 +4,9 @@ Reads the standard python pickle batches from
 ``root/cifar-10-batches-py`` (or ``cifar-100-python``) when present,
 else a synthetic stand-in of 4,096 examples (seed 1226).  Per-channel
 mean/std normalisation over the train set, valid split 0.2, and a
-non-augmented twin of the train loader.  The augmentation recipe
-(RandomAffine translate + HFlip) is not ported yet: ``augment=True``
-raises.
+non-augmented twin of the train loader.  ``augment=True`` puts the
+reference's RandomAffine translate(0.1) + HFlip
+(``transforms.cifar_augment``) on the train loader only.
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ import numpy as np
 
 from optwboundeigenval_tpu_torch.data.loaders import ArrayLoader, train_valid_split
 from optwboundeigenval_tpu_torch.data.synthetic import make_images
+from optwboundeigenval_tpu_torch.data.transforms import cifar_augment
 
 SEED = 1226
 
@@ -63,15 +64,13 @@ def get_train_valid_loader(
     name: str = "cifar10",
     seed: int = SEED,
 ):
-    """``(train_loader, valid_loader, train_loader_na)``."""
-    if augment:
-        raise NotImplementedError(
-            "CIFAR augmentation is not ported yet; pass augment=False")
+    """``(train_loader, valid_loader, train_loader_na)``; ``augment``
+    applies to the shuffling train loader alone."""
     x, y = load_cifar(root, name, train=True)
     x = (x - x.mean(axis=(0, 1, 2))) / x.std(axis=(0, 1, 2))
     tr_idx, va_idx = train_valid_split(len(x), valid_size, seed)
     train_loader = ArrayLoader(x[tr_idx], y[tr_idx], batch_size, shuffle=True,
-                               seed=seed)
+                               seed=seed, augment=cifar_augment() if augment else None)
     valid_loader = ArrayLoader(x[va_idx], y[va_idx], batch_size)
     train_loader_na = ArrayLoader(x[tr_idx], y[tr_idx], batch_size)
     return train_loader, valid_loader, train_loader_na

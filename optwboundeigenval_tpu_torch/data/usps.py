@@ -5,8 +5,10 @@ split, seed 1226), ``get_train_loader_na`` (its non-augmented twin) and
 ``get_test_loader``.  Reads the libsvm-format ``usps.bz2`` /
 ``usps.t.bz2`` from ``root`` when present, else a deterministic
 synthetic stand-in with the same shapes (7,291 train and 2,007 test
-16x16x1 images, 10 classes).  Augmentation is not ported yet:
-``augment=True`` raises.
+16x16x1 images, 10 classes).  ``augment=True`` puts the reference's
+crop-pad 1 + rotation 15 degrees (``transforms.usps_augment``) on the train
+loader; ``get_test_loader(augment=True)`` returns the two augmented test
+loaders.
 """
 
 from __future__ import annotations
@@ -19,15 +21,10 @@ import numpy as np
 
 from optwboundeigenval_tpu_torch.data.loaders import ArrayLoader, train_valid_split
 from optwboundeigenval_tpu_torch.data.synthetic import make_images
+from optwboundeigenval_tpu_torch.data.transforms import usps_augment
 
 SEED = 1226  # usps_data.py:27-28
 N_TRAIN, N_TEST = 7291, 2007  # official USPS split sizes
-
-
-def _no_augment(augment: bool) -> None:
-    if augment:
-        raise NotImplementedError("USPS augmentation is not ported yet; "
-                                  "pass augment=False")
 
 
 def _read_libsvm_bz2(path: str) -> Tuple[np.ndarray, np.ndarray]:
@@ -61,11 +58,11 @@ def get_train_valid_loader(batch_size: int = 128, augment: bool = False,
                            seed: int = SEED):
     """``(train_loader, valid_loader)``: 1/7 validation split from a seeded
     permutation; the train loader shuffles."""
-    _no_augment(augment)
     x, y = load_usps(root, train=True)
     tr_idx, va_idx = train_valid_split(len(x), valid_size, seed)
+    aug = usps_augment(pad=1, degrees=15) if augment else None
     train_loader = ArrayLoader(x[tr_idx], y[tr_idx], batch_size, shuffle=True,
-                               seed=seed)
+                               seed=seed, augment=aug)
     return train_loader, ArrayLoader(x[va_idx], y[va_idx], batch_size)
 
 
@@ -80,6 +77,13 @@ def get_train_loader_na(batch_size: int = 128, valid_size: float = 1.0 / 7,
 
 def get_test_loader(batch_size: int = 128, augment: bool = False,
                     root: str = "./data", seed: int = SEED):
-    _no_augment(augment)
+    """The plain test loader, or with ``augment`` the reference's two
+    augmented ones as a list: crop-pad 1 + rotation 15 from ``seed`` and
+    crop-pad 2 + rotation 30 from ``seed + 1`` (usps_data.py:25-33)."""
     x, y = load_usps(root, train=False)
-    return ArrayLoader(x, y, batch_size, seed=seed)
+    if not augment:
+        return ArrayLoader(x, y, batch_size, seed=seed)
+    return [ArrayLoader(x, y, batch_size, seed=seed,
+                        augment=usps_augment(pad=1, degrees=15)),
+            ArrayLoader(x, y, batch_size, seed=seed + 1,
+                        augment=usps_augment(pad=2, degrees=30))]

@@ -3,12 +3,20 @@ third-order directional derivative ``v^T (grad H) v`` (counterpart of
 ``optwboundeigenval_tpu/ops/curvature.py``).
 
 A loss function maps ``(params, batch) -> scalar`` with ``params`` a
-dict of tensors.  Every product is a ``torch.func`` composition:
+dict of tensors.  Every product is plain autograd over the loss:
 
-* ``hvp``  = forward-over-reverse, ``jvp(grad(loss))``;
+* ``grad`` = one reverse pass;
+* ``hvp`` = reverse over reverse, ``autograd.grad(g, p, v)`` with ``g``
+  taken with ``create_graph=True``;
 * ``linearize_hvp`` = the gradient's graph kept, one reverse pass per HVP;
-* ``vghv`` = ``grad_p <jvp(grad(loss))(p; v), v>``, one reverse pass
-  over the HVP.
+* ``vghv`` = ``autograd.grad(<hv, v>, p)`` with ``hv`` taken with
+  ``create_graph=True``.
+
+Plain autograd, not ``torch.func``: ``torch.func`` transforms refuse the
+saved-tensor hooks of ``torch.utils.checkpoint``, which :func:`checkpointed`
+(the ``remat`` option) puts around the loss, and on an H100 the autograd
+forms were as fast or faster than ``torch.func``'s ``jvp(grad)`` and
+``grad(<jvp(grad), v>)`` on every model of the package (PERF.md, section 6).
 
 The ``*_microbatched`` variants split the batch into contiguous slices
 ``[i*mb, (i+1)*mb)`` (BatchNorm statistics are per slice, as in the JAX
@@ -23,26 +31,56 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, Tuple
 
 import torch
-from torch.func import grad as _grad
-from torch.func import jvp
+from torch.utils.checkpoint import checkpoint
 
 from optwboundeigenval_tpu_torch.ops.pallas_kernels import axpy_accumulate
-from optwboundeigenval_tpu_torch.utils.tree import tree_vdot
 
 Tree = Dict[str, torch.Tensor]
 LossFn = Callable[[Tree, Any], torch.Tensor]
 
 
+def checkpointed(loss_fn: LossFn) -> LossFn:
+    """``loss_fn`` under ``torch.utils.checkpoint`` (non-reentrant): its
+    forward activations are recomputed in each backward pass instead of
+    kept (the JAX package's ``jax.checkpoint`` of the loss).  The RNG
+    state is not saved: the losses draw no random numbers (dropout is
+    not ported)."""
+
+    def f(params: Tree, batch) -> torch.Tensor:
+        return checkpoint(loss_fn, params, batch, use_reentrant=False,
+                          preserve_rng_state=False)
+
+    return f
+
+
+def _leaves(params: Tree) -> Tree:
+    return {k: p.detach().requires_grad_(True) for k, p in params.items()}
+
+
 def grad(loss_fn: LossFn, params: Tree, batch) -> Tree:
     """Gradient of the loss at ``params`` (reference ``prepare_grad``,
     opt.py:175-192)."""
-    return _grad(loss_fn)(params, batch)
+    leaves = _leaves(params)
+    with torch.enable_grad():
+        g = torch.autograd.grad(loss_fn(leaves, batch), list(leaves.values()))
+    return dict(zip(leaves, g))
+
+
+def _hv_graph(loss_fn: LossFn, params: Tree, batch, v: Tree):
+    """``(leaves, hv)`` with ``hv = H v`` by reverse over reverse, its
+    graph kept for one more pass."""
+    leaves = _leaves(params)
+    inputs = list(leaves.values())
+    with torch.enable_grad():
+        g = torch.autograd.grad(loss_fn(leaves, batch), inputs, create_graph=True)
+        hv = torch.autograd.grad(g, inputs, [v[k] for k in leaves], create_graph=True)
+    return leaves, hv
 
 
 def hvp(loss_fn: LossFn, params: Tree, batch, v: Tree) -> Tree:
-    """``H(params) @ v`` by forward-over-reverse (reference
-    ``HVPOperator.Hv``, opt.py:77-108)."""
-    return jvp(lambda p: _grad(loss_fn)(p, batch), (params,), (v,))[1]
+    """``H(params) @ v`` (reference ``HVPOperator.Hv``, opt.py:77-108)."""
+    leaves, hv = _hv_graph(loss_fn, params, batch, v)
+    return {k: t.detach() for k, t in zip(leaves, hv)}
 
 
 def linearize_hvp(loss_fn: LossFn, params: Tree, batch
@@ -55,7 +93,7 @@ def linearize_hvp(loss_fn: LossFn, params: Tree, batch
     ``autograd.grad(grad, params, v)`` (the reference's ``stored_grad``,
     opt.py:86-99).  The graph lives as long as ``hvp_fn``.  The returned
     gradient is detached."""
-    leaves = {k: p.detach().requires_grad_(True) for k, p in params.items()}
+    leaves = _leaves(params)
     inputs = list(leaves.values())
     with torch.enable_grad():
         g = torch.autograd.grad(loss_fn(leaves, batch), inputs, create_graph=True)
@@ -70,12 +108,14 @@ def linearize_hvp(loss_fn: LossFn, params: Tree, batch
 
 def vghv(loss_fn: LossFn, params: Tree, batch, v: Tree) -> Tree:
     """``v^T (grad H) v``: the gradient of ``<H(p) v, v>`` with respect
-    to ``p`` (reference ``HVPOperator.vGHv``, opt.py:110-152)."""
-
-    def rayleigh_num(p):
-        return tree_vdot(hvp(loss_fn, p, batch, v), v)
-
-    return _grad(rayleigh_num)(params)
+    to ``p``, a third reverse pass over the HVP's graph (reference
+    ``HVPOperator.vGHv``, opt.py:110-152)."""
+    leaves, hv = _hv_graph(loss_fn, params, batch, v)
+    with torch.enable_grad():
+        rayleigh_num = torch.stack([torch.dot(h.reshape(-1), v[k].reshape(-1))
+                                    for k, h in zip(leaves, hv)]).sum()
+        out = torch.autograd.grad(rayleigh_num, list(leaves.values()))
+    return dict(zip(leaves, out))
 
 
 def _batch_weight(batch) -> torch.Tensor:

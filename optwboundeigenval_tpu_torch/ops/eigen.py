@@ -1,6 +1,7 @@
-"""Dominant-eigenpair estimation by damped power iteration over a
-matrix-free operator (counterpart of ``optwboundeigenval_tpu/ops/eigen.py``
-``power_iteration`` and ``estimate_dominant_eig``).
+"""Eigensolvers over a matrix-free symmetric operator (counterpart of
+``optwboundeigenval_tpu/ops/eigen.py``): damped power iteration, block
+subspace iteration, and Lanczos with full reorthogonalisation (a fixed
+depth, an early-exit depth, and the top-k spectrum).
 
 Reference ``comp_rho`` (opt.py:418-533), kept exactly:
 
@@ -18,6 +19,14 @@ Reference ``comp_rho`` (opt.py:418-533), kept exactly:
 The JAX ``lax.while_loop`` becomes a Python loop.  Its stop test reads
 one boolean back to the host every iteration: one device sync per HVP,
 a known cost of this port (the JAX loop runs inside one program).
+
+The subspace and Lanczos solvers work on one flat vector per tree
+(``tree_ravel``; the operator sees the tree).  The Krylov basis is an
+``(m, n)`` tensor on the device in ``promote(float32, dtype)``, and its
+two-pass reorthogonalisation ``V.T @ (V @ w)`` is ``torch.matmul``.  The
+``(m, m)`` tridiagonal ``eigh`` runs on the host in that dtype: the
+adaptive solver reads ``alpha_j, beta_j`` back once per depth for its
+stop test, as the power iteration reads its test once per HVP.
 """
 
 from __future__ import annotations
@@ -32,6 +41,7 @@ from optwboundeigenval_tpu_torch.utils.tree import (
     Tree,
     tree_axpy,
     tree_norm,
+    tree_ravel,
     tree_scale,
     tree_size,
     tree_sub,
@@ -130,6 +140,260 @@ def power_iteration(
                            iters=i, converged=done)
 
 
+class SubspaceResult(NamedTuple):
+    """``eigenvalues``: ``(k,)`` signed, descending by |value|; ``V``:
+    ``(k, n)`` rows (the orthonormal basis, or the Ritz vectors of
+    :func:`lanczos_spectrum`); ``resid``: ``(k,)`` residual norms;
+    ``iters``: sweeps (subspace) or HVPs (Lanczos)."""
+
+    eigenvalues: torch.Tensor
+    V: torch.Tensor
+    resid: torch.Tensor
+    iters: int
+
+
+def _flat_operator(matvec: MatVec, v0: Tree):
+    """``(flat0, unravel, wdtype, mv)``: the start vector flattened, and
+    the operator on flat vectors of ``wdtype = promote(float32, dtype)``."""
+    flat0, unravel = tree_ravel(v0)
+    dtype = flat0.dtype
+    wdtype = torch.promote_types(torch.float32, dtype)
+
+    def mv(u: torch.Tensor) -> torch.Tensor:
+        return tree_ravel(matvec(unravel(u.to(dtype))))[0].to(wdtype)
+
+    return flat0, unravel, wdtype, mv
+
+
+def _unit(u: torch.Tensor) -> torch.Tensor:
+    return u / torch.clamp_min(torch.sqrt(torch.dot(u, u)), 1e-30)
+
+
+def subspace_iteration(
+    matvec: MatVec,
+    v0: Tree,
+    k: int = 4,
+    *,
+    eps: float = 1e-4,
+    max_iter: int = 200,
+    start: Optional[torch.Tensor] = None,
+) -> SubspaceResult:
+    """Top-k eigenpairs by block power iteration with Rayleigh-Ritz.
+
+    The start block is ``start`` (``(k, n)``, flat in ``tree_ravel``
+    order), else ``k`` normal rows drawn on the host from a generator
+    seeded 0 (the JAX solver's default key 0 likewise draws the same rows
+    every call); its row 0 becomes ``v0``.  Each sweep is ``k``
+    HVPs, a ``(k, k)`` ``eigh`` and a QR; it stops when every Ritz
+    residual is below ``eps`` (one host sync per sweep)."""
+    flat0, _, dtype, mv = _flat_operator(matvec, v0)
+    n = flat0.numel()
+    if start is None:
+        start = torch.randn((k, n), generator=torch.Generator().manual_seed(0),
+                            dtype=dtype)
+    V = start.to(flat0.device, dtype, copy=True)
+    V[0] = flat0
+
+    def orthonormalize(B):
+        return torch.linalg.qr(B.T)[0].T
+
+    V = orthonormalize(V)
+    evals = torch.zeros(k, dtype=dtype, device=flat0.device)
+    resid = torch.full((k,), math.inf, dtype=dtype, device=flat0.device)
+    i, done = 0, False
+    while i < max_iter and not done:
+        W = torch.stack([mv(row) for row in V])
+        H = V @ W.T
+        evals, U = torch.linalg.eigh((H + H.T) / 2)
+        order = torch.argsort(-evals.abs(), stable=True)
+        evals, U = evals[order], U[:, order]
+        ritz, ritz_W = U.T @ V, U.T @ W
+        resid = torch.linalg.norm(ritz_W - evals[:, None] * ritz, dim=1)
+        done = bool((resid < eps).all())  # host sync
+        i += 1
+        if not done:
+            V = orthonormalize(ritz_W)
+    return SubspaceResult(eigenvalues=evals, V=V, resid=resid, iters=i)
+
+
+def _lanczos_step(mv, V: torch.Tensor, j: int, q, q_prev, beta_prev):
+    """Lanczos step ``j``: ``q`` becomes basis row ``j``; returns ``(w,
+    alpha_j, beta_j)``, the next direction after the three-term recurrence
+    and two passes of full reorthogonalisation against the rows so far,
+    and its norm."""
+    V[j] = q
+    w = mv(q)
+    alpha = torch.dot(w, q)
+    w = w - alpha * q - beta_prev * q_prev
+    Vj = V[:j + 1]
+    w = w - Vj.T @ (Vj @ w)
+    w = w - Vj.T @ (Vj @ w)
+    return w, alpha, torch.sqrt(torch.dot(w, w))
+
+
+def _lanczos_basis(mv, q0: torch.Tensor, m: int):
+    """``m`` Lanczos steps from ``q0``: the ``(m, n)`` basis rows and the
+    tridiagonal's ``alphas`` and ``betas`` ``(m,)``, on the device.  A
+    breakdown (``beta_j <= 1e-12``, an invariant Krylov space) records
+    ``beta_j = 0`` and zeroes the later iterates, as the JAX scan does."""
+    q = _unit(q0)
+    V = torch.zeros((m, q.numel()), dtype=q.dtype, device=q.device)
+    q_prev, beta_prev = torch.zeros_like(q), torch.zeros((), dtype=q.dtype, device=q.device)
+    alphas, betas = [], []
+    for j in range(m):
+        w, alpha, beta = _lanczos_step(mv, V, j, q, q_prev, beta_prev)
+        live = beta > 1e-12
+        q_prev, q = q, torch.where(live, w / torch.clamp_min(beta, 1e-30), torch.zeros_like(w))
+        beta_prev = torch.where(live, beta, torch.zeros_like(beta))
+        alphas.append(alpha)
+        betas.append(beta_prev)
+    return V, torch.stack(alphas), torch.stack(betas)
+
+
+def _tridiag(alphas: torch.Tensor, off: torch.Tensor) -> torch.Tensor:
+    return torch.diag(alphas) + torch.diag(off, 1) + torch.diag(off, -1)
+
+
+def lanczos_spectrum(
+    matvec: MatVec,
+    v0: Tree,
+    k: int = 4,
+    *,
+    m: int = 32,
+    explicit_residual: bool = True,
+) -> SubspaceResult:
+    """Top-k eigenvalues (by |value|) from one ``m``-step Lanczos build:
+    ``eigenvalues`` signed, ``V`` the ``(k, n)`` unit Ritz vectors,
+    ``resid`` the re-measured ``|H v - lam v|`` (``k`` more HVPs) or,
+    without ``explicit_residual``, the Lanczos estimates ``|beta_m
+    y_m[i]|``; ``iters`` counts HVPs.  Ritz pairs supported on the rows
+    after a breakdown are spurious zeros and report ``resid = inf``."""
+    flat0, _, wdtype, mv = _flat_operator(matvec, v0)
+    n = flat0.numel()
+    m = int(min(m, n))
+    k = int(min(k, m))
+    V, alphas, betas = _lanczos_basis(mv, flat0.to(wdtype), m)
+    a, b = alphas.cpu(), betas.cpu()  # host sync
+    evals, evecs = torch.linalg.eigh(_tridiag(a, b[:-1]))
+    order = torch.argsort(-evals.abs(), stable=True)[:k]
+    lam, Y = evals[order], evecs[:, order]
+    ritz = (V.T @ Y.to(V.device)).T
+    ritz = ritz / torch.clamp_min(torch.linalg.norm(ritz, dim=1, keepdim=True), 1e-30)
+    lam_dev = lam.to(V.device)
+    if explicit_residual:
+        W = torch.stack([mv(r) for r in ritz])
+        resid = torch.linalg.norm(W - lam_dev[:, None] * ritz, dim=1)
+        iters = m + k
+    else:
+        resid = (b[-1].abs() * Y[-1, :].abs()).to(V.device)
+        iters = m
+    # row j + 1 of T is live iff beta_j > 0; a pair whose mass sits on
+    # dead rows is a spurious zero
+    row_live = torch.cat([torch.ones(1, dtype=torch.bool), b[:-1] > 0])
+    dead = ((Y ** 2) * (~row_live)[:, None].to(Y.dtype)).sum(dim=0) > 0.5
+    resid = torch.where(dead.to(V.device), torch.full_like(resid, math.inf), resid)
+    return SubspaceResult(eigenvalues=lam_dev, V=ritz, resid=resid, iters=iters)
+
+
+def lanczos_dominant(
+    matvec: MatVec,
+    v0: Tree,
+    *,
+    m: int = 16,
+    eps: float = 1e-3,
+    explicit_residual: bool = True,
+) -> PowerIterResult:
+    """Dominant eigenpair from an ``m``-step Lanczos build, in
+    ``PowerIterResult`` form: ``rho = |lam|``; ``norm`` the re-measured
+    ``|H v - lam v|`` (one more HVP, so ``iters = m + 1``) or the free
+    estimate; ``res_change`` the estimate ``|beta_m y_m|``;
+    ``converged`` when ``norm < eps`` or the leading Ritz value moved by
+    less than ``eps`` relative between depths ``m - 1`` and ``m``."""
+    flat0, unravel, wdtype, mv = _flat_operator(matvec, v0)
+    n = flat0.numel()
+    m = int(min(m, n))
+    V, alphas, betas = _lanczos_basis(mv, flat0.to(wdtype), m)
+    a, b = alphas.cpu(), betas.cpu()  # host sync
+    T = _tridiag(a, b[:-1])
+    evals, evecs = torch.linalg.eigh(T)
+    idx = int(torch.argmax(evals.abs()))
+    lam, y = evals[idx], evecs[:, idx]
+    dlam_rel = math.inf
+    if m > 1:
+        lam_prev = float(torch.linalg.eigvalsh(T[:m - 1, :m - 1]).abs().max())
+        if lam_prev > 0:
+            dlam_rel = float((lam.abs() - lam_prev).abs() / lam_prev)
+    v_flat = _unit(V.T @ y.to(V.device))
+    est = b[-1].abs() * y[-1].abs()
+    if explicit_residual:
+        r = mv(v_flat) - lam.to(V.device) * v_flat
+        norm = torch.sqrt(torch.dot(r, r))
+        iters = m + 1
+    else:
+        norm, iters = est.to(V.device), m
+    converged = bool(norm < eps) or dlam_rel < eps
+    return PowerIterResult(rho=lam.abs().to(V.device), v=unravel(v_flat.to(flat0.dtype)),
+                           norm=norm, res_change=est.to(V.device), iters=iters,
+                           converged=converged)
+
+
+def lanczos_dominant_adaptive(
+    matvec: MatVec,
+    v0: Tree,
+    *,
+    m_max: int = 16,
+    eps: float = 1e-3,
+) -> PowerIterResult:
+    """Early-exit Lanczos (the solver of ``eigensolver='auto'``): the
+    Krylov build of :func:`lanczos_dominant` stopped at the first depth
+    ``j`` where the leading Ritz pair of the zero-padded ``(m_max,
+    m_max)`` tridiagonal has its free residual estimate ``|beta_j y_j|``
+    below ``eps``, or its value moved by less than ``eps`` relative from
+    the value two depths back (from the third depth on), or the Krylov
+    space broke down.  One host sync per depth;
+    ``norm`` is re-measured with one more HVP, which ``iters`` counts."""
+    flat0, unravel, wdtype, mv = _flat_operator(matvec, v0)
+    n = flat0.numel()
+    m_max = int(min(m_max, n))
+    q = _unit(flat0.to(wdtype))
+    dev = q.device
+    V = torch.zeros((m_max, n), dtype=wdtype, device=dev)
+    alphas = torch.zeros(m_max, dtype=wdtype)  # host
+    betas = torch.zeros(m_max, dtype=wdtype)
+    q_prev, beta_prev = torch.zeros_like(q), 0.0
+    lam = lam_prev = torch.zeros((), dtype=wdtype)
+    y = torch.zeros(m_max, dtype=wdtype)
+    est = torch.full((), math.inf, dtype=wdtype)
+    j, done = 0, False
+    while j < m_max and not done:
+        w, alpha, beta = _lanczos_step(mv, V, j, q, q_prev, beta_prev)
+        alpha_h, beta_h = torch.stack([alpha, beta]).cpu()  # host sync
+        live = bool(beta_h > 1e-12)
+        beta_rec = beta_h if live else torch.zeros_like(beta_h)
+        q_prev, q = q, (w / torch.clamp_min(beta, 1e-30) if live else torch.zeros_like(w))
+        beta_prev = beta_rec.item()
+        alphas[j], betas[j] = alpha_h, beta_rec
+        # the off-diagonal beta_j couples row j to the row not built yet
+        off = betas.clone()
+        off[j] = 0.0
+        evals, evecs = torch.linalg.eigh(_tridiag(alphas, off[:-1]))
+        idx = int(torch.argmax(evals.abs()))
+        lam_j, y = evals[idx], evecs[:, idx]
+        est = beta_rec.abs() * y[j].abs()
+        # the JAX solver's carry compares the new leading Ritz value with
+        # the one two depths back (its ``lam_prev``), and so does the port
+        dlam_rel = ((lam_j.abs() - lam_prev.abs()).abs() / lam_prev.abs()
+                    if lam_prev.abs() > 0 else math.inf)
+        lam_prev, lam = lam, lam_j
+        done = bool(est < eps) or (j >= 1 and bool(dlam_rel < eps)) or not live
+        j += 1
+    v_flat = _unit(V.T @ y.to(dev))
+    r = mv(v_flat) - lam.to(dev) * v_flat
+    return PowerIterResult(rho=lam.abs().to(dev), v=unravel(v_flat.to(flat0.dtype)),
+                           norm=torch.sqrt(torch.dot(r, r)), res_change=est.to(dev),
+                           iters=j + 1, converged=done)
+
+
 def estimate_dominant_eig(
     matvec: MatVec,
     v0: Tree,
@@ -142,16 +406,28 @@ def estimate_dominant_eig(
     cap_by_dim: bool = True,
     momentum: Optional[float] = None,
     method: str = "power",
+    lanczos_m: int = 16,
 ) -> PowerIterResult:
-    """Power iteration plus the reference's discard protocol: when the
-    stopping rule never fired and ``ignore_bad_vals``, report
+    """A dominant-eigenpair solve plus the reference's discard protocol:
+    when the stopping rule never fired and ``ignore_bad_vals``, report
     ``rho = -1`` and reset ``v`` to the uniform start vector
-    (opt.py:513-520).  Only ``method="power"`` is ported."""
-    if method != "power":
-        raise NotImplementedError(f"eigensolve method {method!r} is not ported")
-    res = power_iteration(matvec, v0, eps=eps, max_iter=max_iter, alpha=alpha,
-                          precond=precond, cap_by_dim=cap_by_dim,
-                          momentum=momentum)
+    (opt.py:513-520).  ``method``: ``"power"`` (the reference's damped
+    power iteration), ``"lanczos"`` (:func:`lanczos_dominant` at depth
+    ``min(lanczos_m, max_iter)``) or ``"lanczos_adaptive"``
+    (:func:`lanczos_dominant_adaptive`, depth at most that)."""
+    if method in ("lanczos", "lanczos_adaptive"):
+        if precond is not None:
+            raise ValueError("lanczos eigensolve does not compose with a "
+                             "preconditioner; use one or the other")
+        solve = lanczos_dominant if method == "lanczos" else lanczos_dominant_adaptive
+        depth = {"m" if method == "lanczos" else "m_max": min(lanczos_m, max_iter)}
+        res = solve(matvec, v0, eps=eps, **depth)
+    elif method == "power":
+        res = power_iteration(matvec, v0, eps=eps, max_iter=max_iter, alpha=alpha,
+                              precond=precond, cap_by_dim=cap_by_dim,
+                              momentum=momentum)
+    else:
+        raise ValueError(f"unknown eigensolve method: {method!r}")
     if not ignore_bad_vals or res.converged:
         return res
     return res._replace(rho=torch.full_like(res.rho, -1.0),

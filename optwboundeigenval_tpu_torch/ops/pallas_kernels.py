@@ -25,8 +25,8 @@ tensor or a list of leaves, in one launch.
 
 The wrapper takes the plain version only for tensors on the CPU; for
 CUDA tensors it launches the kernel or raises.  Nothing differentiates
-through the accumulate (it runs outside every ``torch.func`` transform),
-so there is no ``autograd.Function``.
+through the accumulate (it sums detached terms, outside every autograd
+pass), so there is no ``autograd.Function``.
 """
 
 from __future__ import annotations

@@ -5,9 +5,12 @@ A step (``_step_body``, reference ``iter()`` body, opt.py:580-763):
 
 1. gradient of the task loss and an HVP map: the cached linearization
    (``curvature.linearize_hvp``), or micro-batched passes through the
-   CUDA accumulate kernel when ``hvp_micro > 1``;
-2. damped power iteration for ``rho``, warm-started from the carried
-   eigenvector;
+   CUDA accumulate kernel when ``hvp_micro > 1``; under ``remat`` the
+   loss is checkpointed (``curvature.checkpointed``) and every product
+   takes its plain-autograd form;
+2. ``rho`` by the ``eigensolver`` (damped power iteration, or Lanczos at
+   a fixed or early-exit depth), warm-started from the carried
+   eigenvector, or from the uniform vector under ``rand_init``;
 3. the penalty ``g`` and, when ``g > 0``, ``grad g`` from the vGHv pass;
 4. ``p = grad f + mu * grad g`` and the optimizer step;
 5. the BatchNorm running statistics, updated on the full batch at the
@@ -18,7 +21,9 @@ An epoch (``iter_epoch``) runs the steps, recomputes ``f`` over the
 train set in eval mode and ``rho`` on one random batch, and sets
 ``h = f + mu * g``; ``train`` loops epochs with the reference's TSV log,
 best-model checkpoint and coefficient-of-variation stop; ``test_model``,
-``test_set``, ``rho_test`` and ``parse`` are the evaluation cascade.
+``test_set``, ``rho_test`` and ``parse`` are the evaluation cascade, and
+``rho_test_fused`` and ``spectrum_test`` the JAX package's audits of
+``rho`` from a fresh start and of the top-k spectrum per batch.
 
 State ``(params, model_state, opt_state, v)`` is carried explicitly as
 dicts of tensors.  Entry points run on the card: ``device=None`` means
@@ -28,9 +33,10 @@ on the CPU.
 
 from __future__ import annotations
 
+import math
 import os
 import time
-from typing import Any, Callable, Dict, List, Optional, Union
+from typing import Any, Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -41,7 +47,11 @@ from optwboundeigenval_tpu_torch.optim.api import Optimizer
 from optwboundeigenval_tpu_torch.train import checkpoints
 from optwboundeigenval_tpu_torch.train.task import Task
 from optwboundeigenval_tpu_torch.utils.timing import Timers
-from optwboundeigenval_tpu_torch.utils.tree import tree_norm, tree_uniform_like
+from optwboundeigenval_tpu_torch.utils.tree import (
+    tree_axpy,
+    tree_norm,
+    tree_uniform_like,
+)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -59,9 +69,8 @@ def resolve_device(device=None) -> torch.device:
 # the value under which they are inert
 _UNPORTED = {
     "lobpcg": False, "precond_builder": None, "scan_steps": 1, "mesh": None,
-    "remat": False, "donate": False, "mem_track": False, "profile_dir": None,
-    "rand_init": False, "lanczos_m": None, "kfac_rand": True,
-    "kfac_ema": False, "kfac_batch": 1, "profile_epoch": 0,
+    "donate": False, "mem_track": False, "profile_dir": None,
+    "kfac_rand": True, "kfac_ema": False, "kfac_batch": 1, "profile_epoch": 0,
 }
 # test_func words whose evaluation (sigmoid outputs, AUC) is not ported yet
 _UNPORTED_TEST_FUNC = ("auc", "sigmoid", "logit")
@@ -76,6 +85,30 @@ def _as_loader(data, batch_size) -> ArrayLoader:
         return data
     x, y = data
     return ArrayLoader(np.asarray(x), np.asarray(y), batch_size=batch_size)
+
+
+def resolve_eigensolver(eigensolver: str, rand_init: bool, pow_iter_eps: float,
+                       momentum: Optional[float], lanczos_m: Optional[int]):
+    """``(method, lanczos_m)`` for the trainer's options (JAX trainer
+    lines 151-178).  ``'auto'`` takes the early-exit Lanczos solver where
+    power iteration needs many HVPs (``rand_init``, or ``pow_iter_eps <=
+    5e-3``) and power iteration elsewhere or with ``momentum``; its depth
+    cap defaults to ``clip(2 ceil(log10(1 / eps)) + 2, 4, 16)``, any other
+    solver's to 16."""
+    if eigensolver not in ("power", "lanczos", "auto"):
+        raise ValueError(f"unknown eigensolver: {eigensolver!r}")
+    if eigensolver == "lanczos" and momentum is not None:
+        raise ValueError("eigensolver='lanczos' does not compose with pow_iter_momentum")
+    method = eigensolver
+    if eigensolver == "auto":
+        method = ("lanczos_adaptive" if momentum is None
+                  and (rand_init or pow_iter_eps <= 5e-3) else "power")
+    if lanczos_m is None:
+        lanczos_m = 16
+        if eigensolver == "auto":
+            depth = 2 * math.ceil(math.log10(1.0 / max(pow_iter_eps, 1e-12))) + 2
+            lanczos_m = int(min(16, max(4, depth)))
+    return method, int(lanczos_m)
 
 
 def f1_micro(y_true: np.ndarray, y_pred: np.ndarray) -> float:
@@ -107,8 +140,8 @@ class SpectralTrainer:
     is a scalar or a callable of the epoch index; ``pow_iter_alpha`` a
     scalar or a callable of the power-iteration index.  The options of
     ``_UNPORTED`` raise ``NotImplementedError`` when set to anything but
-    their inert value, as do ``eigensolver`` other than ``"power"`` and a
-    ``test_func`` asking for sigmoid outputs or AUC."""
+    their inert value, as does a ``test_func`` asking for sigmoid outputs
+    or AUC."""
 
     def __init__(
         self,
@@ -163,9 +196,6 @@ class SpectralTrainer:
             if given[name] != inert:
                 raise NotImplementedError(
                     f"SpectralTrainer({name}={given[name]!r}) is not ported")
-        if eigensolver != "power":
-            raise NotImplementedError(
-                f"SpectralTrainer(eigensolver={eigensolver!r}) is not ported")
         if any(t in test_func for t in _UNPORTED_TEST_FUNC):
             raise NotImplementedError(
                 f"SpectralTrainer(test_func={test_func!r}) is not ported")
@@ -186,6 +216,13 @@ class SpectralTrainer:
         self.ignore_bad_vals = ignore_bad_vals
         self.pow_iter_alpha = pow_iter_alpha
         self.pow_iter_momentum = pow_iter_momentum
+        self.rand_init = rand_init
+        self.eigensolver_requested = eigensolver
+        self.eigensolver, self.lanczos_m = resolve_eigensolver(
+            eigensolver, rand_init, pow_iter_eps, pow_iter_momentum, lanczos_m)
+        # remat: the loss under torch.utils.checkpoint, its activations
+        # recomputed in each backward pass (curvature.checkpointed)
+        self.remat = remat
         self.gradg_clip = gradg_clip
         self.best_h_val = best_h
         self.verbose = verbose
@@ -261,10 +298,14 @@ class SpectralTrainer:
     # ------------------------------------------------------------------
     # one step
     # ------------------------------------------------------------------
+    def _loss_fn(self, model_state):
+        loss_fn = self.task.loss_fn(model_state)
+        return curvature.checkpointed(loss_fn) if self.remat else loss_fn
+
     def _step_body(self, params, model_state, opt_state, v, batch, mu):
         """Pure per-batch step: returns ``(params, model_state, opt_state,
         v, metrics)`` with the metrics as device tensors."""
-        loss_fn = self.task.loss_fn(model_state)
+        loss_fn = self._loss_fn(model_state)
         if self.hvp_micro > 1:
             # memory-bounded path: O(B / micro) activations per pass
             grads_f = curvature.grad_microbatched(loss_fn, params, batch,
@@ -276,7 +317,7 @@ class SpectralTrainer:
 
         gradf_norm = tree_norm(grads_f)
         if self.pow_iter:
-            eig = self._eig(hvp_fn, v)
+            eig = self._eig(hvp_fn, self._start(v))
             sg = spectral.penalty_and_grad(
                 loss_fn, params, batch, eig.v, eig.rho, K=self.K,
                 Kmin=self.Kmin, gradg_clip=self.gradg_clip,
@@ -304,11 +345,17 @@ class SpectralTrainer:
         new_model_state = self._advance_stats(params, model_state, batch)
         return new_params, new_model_state, new_opt_state, new_v, metrics
 
-    def _eig(self, hvp_fn, v):
+    def _start(self, v):
+        """The eigensolver's start: the carried ``v``, or the uniform
+        vector under ``rand_init``."""
+        return tree_uniform_like(v) if self.rand_init else v
+
+    def _eig(self, hvp_fn, v0):
         return eigen.estimate_dominant_eig(
-            hvp_fn, v, eps=self.pow_iter_eps, max_iter=self.max_pow_iter,
+            hvp_fn, v0, eps=self.pow_iter_eps, max_iter=self.max_pow_iter,
             alpha=self.pow_iter_alpha, ignore_bad_vals=self.ignore_bad_vals,
-            momentum=self.pow_iter_momentum,
+            momentum=self.pow_iter_momentum, method=self.eigensolver,
+            lanczos_m=self.lanczos_m,
         )
 
     def _advance_stats(self, params, model_state, batch):
@@ -360,9 +407,9 @@ class SpectralTrainer:
         then the BN running statistics advance, as the reference's
         train-mode forward does (opt.py:421, 882-910).  Returns ``(eig,
         new_model_state)``."""
-        loss_fn = self.task.loss_fn(self.model_state)
-        _, hvp_fn = curvature.linearize_hvp(loss_fn, self.params, batch)
-        eig = self._eig(hvp_fn, self.v)
+        _, hvp_fn = curvature.linearize_hvp(self._loss_fn(self.model_state),
+                                            self.params, batch)
+        eig = self._eig(hvp_fn, self._start(self.v))
         return eig, self._advance_stats(self.params, self.model_state, batch)
 
     # ------------------------------------------------------------------
@@ -615,11 +662,89 @@ class SpectralTrainer:
             self.v = eig.v
             rows.append([j, rho, norm, eig.iters, res, dt])
             sizes.append(float(np.sum(data["w"])))
+        return self._rho_csv(rows, sizes)
+
+    def _rho_csv(self, rows, sizes):
         arr = np.asarray(rows, dtype=float)
         os.makedirs(self.log_dir, exist_ok=True)
         np.savetxt(os.path.join(self.log_dir, self.header2 + "_rho_test.csv"),
                    arr, delimiter=",")
         return np.average(arr, axis=0, weights=sizes)[1:]
+
+    def rho_test_fused(self, x=None, y=None, loader=None, fname=None):
+        """The JAX package's all-batch ``rho`` audit, batch by batch: every
+        batch starts from the uniform vector (the reference's
+        ``random_v``, opt.py:324-325) instead of the previous batch's
+        eigenvector, the BN running statistics do not advance and
+        ``self.v`` is left alone.  Writes ``rho_test``'s CSV schema; the
+        time column is each batch's wall time, sync included.  (The JAX
+        version runs its batches ``vmap``-ed in one program; here each is
+        its own solve.)"""
+        if fname is not None:
+            self.model_load(fname)
+        if loader is None:
+            loader = _as_loader((x, y), self.batch_size)
+        rows, sizes = [], []
+        for j, data in enumerate(loader):
+            batch = self.put_batch(data)
+            t0 = time.perf_counter()
+            _, hvp_fn = curvature.linearize_hvp(self._loss_fn(self.model_state),
+                                                self.params, batch)
+            eig = self._eig(hvp_fn, tree_uniform_like(self.params))
+            rho, norm, res = torch.stack(
+                [eig.rho, eig.norm, eig.res_change]).to(torch.float64).tolist()
+            rows.append([j, rho, norm, eig.iters, res, time.perf_counter() - t0])
+            sizes.append(float(np.sum(data["w"])))
+        return self._rho_csv(rows, sizes)
+
+    def spectrum_test(self, x=None, y=None, loader=None, k: int = 4,
+                      eps: float = 1e-4, max_iter: int = 200,
+                      method: str = "subspace", lanczos_m: int = 0,
+                      starts: Optional[Sequence] = None):
+        """The leading ``k`` eigenvalues of each batch's Hessian; writes
+        ``<header2>_spectrum_test.csv``, one row per batch: the
+        eigenvalues, their residuals, the sweeps or HVPs.
+
+        ``method="subspace"`` runs block power iteration to ``eps`` within
+        ``max_iter`` sweeps from the uniform vector and ``k - 1`` normal
+        rows (``eigen.subspace_iteration``, the same rows every batch);
+        ``method="lanczos"`` takes all ``k`` from one Krylov build of
+        ``lanczos_m`` steps (default ``max(4k, 16)``) from the uniform
+        vector plus a ``1e-2``-long normal perturbation drawn per batch
+        from the trainer's generator (``eigen.lanczos_spectrum``).
+        ``starts``, one entry per batch, replaces the random draws: the
+        ``(k, n)`` start block in ``tree_ravel`` order (subspace) or the
+        perturbation tree before scaling (lanczos)."""
+        if loader is None:
+            loader = _as_loader((x, y), self.batch_size)
+        if method not in ("subspace", "lanczos"):
+            raise ValueError(f"spectrum_test method {method!r}")
+        m_lz = int(lanczos_m) or max(4 * k, 16)
+        rows = []
+        for j, data in enumerate(loader):
+            _, hvp_fn = curvature.linearize_hvp(self._loss_fn(self.model_state),
+                                                self.params, self.put_batch(data))
+            u = tree_uniform_like(self.params)
+            start = None if starts is None else starts[j]
+            if method == "lanczos":
+                # a single-vector Krylov build cannot resolve multiplicity,
+                # and the uniform start can span an invariant subspace:
+                # perturb it slightly (the JAX trainer's protocol)
+                if start is None:
+                    start = {name: torch.randn(t.shape, generator=self.generator,
+                                               dtype=t.dtype).to(t.device)
+                             for name, t in self.params.items()}
+                v0 = tree_axpy(1e-2 / tree_norm(start), start, u)
+                res = eigen.lanczos_spectrum(hvp_fn, v0, k=k, m=m_lz)
+            else:
+                res = eigen.subspace_iteration(hvp_fn, u, k=k, eps=eps,
+                                               max_iter=max_iter, start=start)
+            rows.append(res.eigenvalues.tolist() + res.resid.tolist() + [res.iters])
+        arr = np.asarray(rows, dtype=float)
+        os.makedirs(self.log_dir, exist_ok=True)
+        np.savetxt(os.path.join(self.log_dir, self.header2 + "_spectrum_test.csv"),
+                   arr, delimiter=",")
+        return arr
 
     # ------------------------------------------------------------------
     # checkpoints (opt.py:765-769, 1041-1071)

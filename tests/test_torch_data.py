@@ -92,10 +92,3 @@ def test_usps_reads_libsvm(tmp_path):
     for u, w in zip(a, b):
         np.testing.assert_array_equal(u, w)
     assert a[0].shape == (5, 16, 16, 1)
-
-
-def test_usps_augment_is_not_ported():
-    with pytest.raises(NotImplementedError, match="augmentation"):
-        usps.get_train_valid_loader(augment=True)
-    with pytest.raises(NotImplementedError, match="augmentation"):
-        usps.get_test_loader(augment=True)

@@ -7,7 +7,11 @@ the driver's handling of options.
 float64 weights (flax init, converted) on both sides: the TSV rows, the
 test lines and the ``rho_test`` CSV agree to rtol 1e-8 (float64 math in
 other orders, accumulated over two epochs; measured ~1e-14), leaving out
-wall times.  The power iteration counts are equal.
+wall times.  The power iteration counts are equal.  The same for Forest
+with ``eigensolver='auto'`` (early-exit Lanczos), USPS with
+``rand_init`` and the augmented test loaders, the ``rho_test_fused`` and
+``spectrum_test`` audits, and the published CIFAR recipe (augmentation
+and remat) on a small DenseNet3.
 """
 
 import os
@@ -25,6 +29,7 @@ from optwboundeigenval_tpu.configs import usps_cnn_mu0_01_K0 as jusps_cfg
 from optwboundeigenval_tpu.data.loaders import ArrayLoader as JaxLoader
 from optwboundeigenval_tpu.models import CNNUSPS as JaxCNNUSPS
 from optwboundeigenval_tpu.models import ForestNet as JaxForestNet
+from optwboundeigenval_tpu.optim import sgd as jax_sgd
 from optwboundeigenval_tpu.train import SpectralTrainer as JaxTrainer
 from optwboundeigenval_tpu.train import driver as jdriver
 from optwboundeigenval_tpu.train.task import Task as JaxTask
@@ -32,7 +37,9 @@ from optwboundeigenval_tpu_torch import main as tmain
 from optwboundeigenval_tpu_torch.configs import cifar10_densenet_mu0_01_K0
 from optwboundeigenval_tpu_torch.configs import forest_best, usps_cnn_mu0_01_K0
 from optwboundeigenval_tpu_torch.data.loaders import ArrayLoader
+from optwboundeigenval_tpu_torch.data.usps import load_usps
 from optwboundeigenval_tpu_torch.data.synthetic import make_classification
+from optwboundeigenval_tpu_torch.models.cnn_usps import CNNUSPS
 from optwboundeigenval_tpu_torch.models.mlp_forest import ForestNet
 from optwboundeigenval_tpu_torch.optim.api import sgd
 from optwboundeigenval_tpu_torch.train import driver
@@ -74,13 +81,15 @@ def _same(a, b):
 
 
 def _cut_usps(opts, loader):
-    """256 train, 128 valid and test rows, as loaders of ``loader``'s class."""
+    """256 train, 128 valid and test rows, as loaders of ``loader``'s class
+    (the augmented test loaders keep their hooks and seeds)."""
     cut = lambda ld, n, **kw: loader(ld.x[:n], ld.y[:n], 128, **kw)
     opts["train_loader"] = cut(opts["train_loader"], 256, shuffle=True, seed=1226)
     opts["valid_loader"] = cut(opts["valid_loader"], 128)
     opts["train_loader_na"] = cut(opts["train_loader_na"], 256)
     opts["test_loader"] = [cut(opts["test_loader"][0], 128)]
-    opts.pop("test_loader_aug", None)
+    opts["test_loader_aug"] = [cut(ld, 128, seed=1226 + i, augment=ld.augment)
+                               for i, ld in enumerate(opts["test_loader_aug"])]
 
 
 def _cut_forest(opts, _):
@@ -89,17 +98,21 @@ def _cut_forest(opts, _):
         opts[k] = opts[k][:n]
 
 
-CASES = {
-    "forest_best": (jforest_best, forest_best, JaxForestNet, interop.forestnet_from_jax,
-                    (1, 54), _cut_forest),
-    "usps_cnn_mu0_01_K0": (jusps_cfg, usps_cnn_mu0_01_K0, JaxCNNUSPS,
-                           interop.cnnusps_from_jax, (1, 16, 16, 1), _cut_usps),
+_FOREST = (jforest_best, forest_best, JaxForestNet, interop.forestnet_from_jax,
+           (1, 54), _cut_forest)
+_USPS = (jusps_cfg, usps_cnn_mu0_01_K0, JaxCNNUSPS, interop.cnnusps_from_jax,
+         (1, 16, 16, 1), _cut_usps)
+CASES = {  # name: (config and model pairs, extra options)
+    "forest_best": (_FOREST, {}),
+    "usps_cnn_mu0_01_K0": (_USPS, {}),
+    "forest_best-auto": (_FOREST, dict(eigensolver="auto")),
+    "usps_cnn_mu0_01_K0-rand_init-aug_test": (_USPS, dict(rand_init=True, aug_test=True)),
 }
 
 
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_driver_run_matches_jax(name, tmp_path, monkeypatch):
-    jcfg, tcfg, jmodel, to_port, xshape, cut = CASES[name]
+    (jcfg, tcfg, jmodel, to_port, xshape, cut), extra = CASES[name]
     jm = jmodel(dtype=jnp.float64)
     p0 = jax.tree.map(lambda a: np.asarray(a, np.float64),
                       jm.init(jax.random.PRNGKey(0), jnp.zeros(xshape))["params"])
@@ -113,12 +126,13 @@ def test_driver_run_matches_jax(name, tmp_path, monkeypatch):
             ("port", tcfg.options(device="cpu"), ArrayLoader, driver.run)):
         cut(opts, loader)
         opts.update(max_iter=2, rho_test=True, log_dir=str(tmp_path / side / "logs"),
-                    model_dir=str(tmp_path / side / "models"))
+                    model_dir=str(tmp_path / side / "models"), **extra)
         if side == "jax":
             opts["model"] = jm
         runs[side] = run(opts)
     jtr, ttr = runs["jax"], runs["port"]
     assert ttr.header2 == jtr.header2
+    assert ttr.eigensolver == jtr.eigensolver
     logs = {s: str(tmp_path / s / "logs" / jtr.header2) for s in runs}
     _same(_log(logs["port"] + ".log"), _log(logs["jax"] + ".log"))
     rows = [ln for ln in _log(logs["port"] + ".log") if isinstance(ln[0], float)]
@@ -131,6 +145,122 @@ def test_driver_run_matches_jax(name, tmp_path, monkeypatch):
     np.testing.assert_allclose(trho[:, :5], jrho[:, :5], rtol=RTOL, atol=1e-12)
     for f in ("_trained_model.pt", "_trained_model_best.pt"):
         assert os.path.exists(tmp_path / "port" / "models" / (jtr.header2 + f))
+    if extra.get("aug_test"):
+        assert sum(ln[:2] == ["Aug", "Test"] for ln in _log(logs["port"] + ".log")) == 6
+
+
+# ---- the audits: rho_test_fused and spectrum_test --------------------------
+
+
+def _usps_pair(tmp_path, **kw):
+    """A JAX and a port USPS trainer at the same float64 weights, and four
+    batches of 32 rows."""
+    jm = JaxCNNUSPS(dtype=jnp.float64)
+    p0 = jax.tree.map(lambda a: np.asarray(a, np.float64),
+                      jm.init(jax.random.PRNGKey(3), jnp.zeros((1, 16, 16, 1)))["params"])
+    common = dict(batch_size=32, header="A", **kw)
+    jtr = JaxTrainer(JaxTask(model=jm), jax_sgd(0.1), log_dir=str(tmp_path / "jax"),
+                     **common)
+    jtr.params, jtr.model_state = jax.tree.map(jnp.asarray, p0), {}
+    jtr.v = jax.tree.map(jnp.ones_like, jtr.params)
+    ttr = SpectralTrainer(Task(model=CNNUSPS()), sgd(0.1), log_dir=str(tmp_path / "port"),
+                          device="cpu", **common)
+    ttr.params, ttr.model_state = interop.cnnusps_from_jax(p0), {}
+    ttr.v = {k: torch.ones_like(t) for k, t in ttr.params.items()}
+    x, y = load_usps(str(tmp_path))
+    return jtr, ttr, ArrayLoader(x[:128], y[:128], 32)
+
+
+@pytest.mark.parametrize("eigensolver", ["power", "auto"])
+def test_rho_test_fused_matches_jax(tmp_path, eigensolver):
+    jtr, ttr, loader = _usps_pair(tmp_path, eigensolver=eigensolver)
+    v_before = {k: t.clone() for k, t in ttr.v.items()}
+    jmeans = jtr.rho_test_fused(loader=loader)
+    tmeans = ttr.rho_test_fused(loader=loader)
+    jrows, trows = (np.loadtxt(tmp_path / s / (tr.header2 + "_rho_test.csv"), delimiter=",")
+                    for s, tr in (("jax", jtr), ("port", ttr)))
+    assert trows.shape == jrows.shape == (4, 6)
+    np.testing.assert_array_equal(trows[:, 3], jrows[:, 3])  # iterations
+    np.testing.assert_allclose(trows[:, :5], jrows[:, :5], rtol=RTOL, atol=1e-12)
+    np.testing.assert_allclose(tmeans[:4], jmeans[:4], rtol=RTOL, atol=1e-12)
+    for k, t in v_before.items():  # the carried eigenvector is left alone
+        assert torch.equal(ttr.v[k], t)
+
+
+@pytest.mark.parametrize("method", ["subspace", "lanczos"])
+def test_spectrum_test_matches_jax(tmp_path, method):
+    """The JAX trainer's random starts (its fixed key-0 block, or its
+    per-batch perturbations from ``self.rng``) go into the port through
+    ``starts``, converted to the port's layout."""
+    from jax.flatten_util import ravel_pytree
+
+    from optwboundeigenval_tpu.utils.tree import tree_random_like
+    from optwboundeigenval_tpu_torch.utils.tree import tree_ravel
+
+    jtr, ttr, loader = _usps_pair(tmp_path)
+    flat, unravel = ravel_pytree(jtr.params)
+    if method == "subspace":
+        block = jax.random.normal(jax.random.PRNGKey(0), (4, flat.size), flat.dtype)
+        rows = [tree_ravel(interop.cnnusps_from_jax(unravel(r)))[0] for r in block]
+        starts = [torch.stack(rows)] * len(loader)
+    else:
+        rng, starts = jtr.rng, []
+        for _ in range(len(loader)):
+            rng, r = jax.random.split(rng)
+            starts.append(interop.cnnusps_from_jax(tree_random_like(r, jtr.params)))
+    kw = dict(loader=loader, k=4, method=method, max_iter=25)
+    want = jtr.spectrum_test(**kw)
+    got = ttr.spectrum_test(starts=starts, **kw)
+    assert got.shape == want.shape == (4, 9)
+    np.testing.assert_array_equal(got[:, 8], want[:, 8])
+    np.testing.assert_allclose(got[:, :4], want[:, :4], rtol=1e-10)
+    np.testing.assert_allclose(got[:, 4:8], want[:, 4:8], rtol=RTOL, atol=1e-12)
+    assert np.isfinite(got).all()
+
+
+# ---- the slice: the published CIFAR recipe ---------------------------------
+
+
+def test_published_cifar_recipe_matches_jax(tmp_path, monkeypatch):
+    """``cifar10_densenet_mu0_01_K0`` with no override but the model (a
+    DenseNet3 of depth 10, growth 4) and a 64-row cut of every split that
+    keeps the train loader's augmentation: one epoch with
+    ``augment=True, remat=True, defer_metrics=True`` equals the JAX
+    driver's log."""
+    from optwboundeigenval_tpu.configs import cifar10_densenet_mu0_01_K0 as jcifar_cfg
+    from optwboundeigenval_tpu.models.densenet import DenseNet3 as JaxDenseNet3
+    from optwboundeigenval_tpu_torch.models.densenet import DenseNet3
+
+    jm = JaxDenseNet3(depth=10, growth_rate=4, dtype=jnp.float64)
+    v0 = jm.init(jax.random.PRNGKey(0), jnp.zeros((1, 32, 32, 3)), train=False)
+    p0 = jax.tree.map(lambda a: np.asarray(a, np.float64), v0["params"])
+    s0 = jax.tree.map(lambda a: np.asarray(a, np.float64), v0["batch_stats"])
+    monkeypatch.setattr(JaxTask, "init", lambda self, rng, x: (
+        jax.tree.map(jnp.asarray, p0), {"batch_stats": jax.tree.map(jnp.asarray, s0)}))
+    monkeypatch.setattr(Task, "init", lambda self, g, dev: interop.densenet3_from_jax(p0, s0))
+    runs = {}
+    for side, opts, loader, run in (
+            ("jax", jcifar_cfg.options(), JaxLoader, jdriver.run),
+            ("port", cifar10_densenet_mu0_01_K0.options(device="cpu"), ArrayLoader,
+             driver.run)):
+        assert opts["remat"] and opts["defer_metrics"]
+        assert opts["train_loader"].augment is not None
+        cut = lambda ld, **kw: loader(ld.x[:64], ld.y[:64], 32, **kw)
+        opts["train_loader"] = cut(opts["train_loader"], shuffle=True, seed=1226,
+                                   augment=opts["train_loader"].augment)
+        opts["valid_loader"] = cut(opts["valid_loader"])
+        opts["train_loader_na"] = cut(opts["train_loader_na"])
+        opts["test_loader"] = [cut(opts["test_loader"][0])]
+        opts.update(max_iter=1, log_dir=str(tmp_path / side / "logs"),
+                    model_dir=str(tmp_path / side / "models"))
+        opts["model"] = jm if side == "jax" else DenseNet3(depth=10, growth_rate=4)
+        runs[side] = run(opts)
+    jtr, ttr = runs["jax"], runs["port"]
+    assert ttr.remat and jtr.remat
+    logs = {s: str(tmp_path / s / "logs" / jtr.header2) for s in runs}
+    jlog, tlog = _log(logs["jax"] + ".log"), _log(logs["port"] + ".log")
+    _same(tlog, jlog)
+    assert len([ln for ln in tlog if isinstance(ln[0], float)]) == 1
 
 
 # ---- the epoch loop on a small ForestNet -----------------------------------
@@ -271,7 +401,7 @@ def test_trainer_takes_every_jax_keyword():
 
 
 @pytest.mark.parametrize("bad", [
-    dict(lanczos_m=8), dict(kfac_rand=False), dict(kfac_ema=True),
+    dict(kfac_rand=False), dict(kfac_ema=True),
     dict(kfac_batch=8), dict(profile_epoch=1), dict(test_func="auc"),
     dict(test_func="sigmoidacc")])
 def test_unported_trainer_options_raise(bad):
@@ -284,6 +414,10 @@ def test_config_options_reach_the_trainer():
     tr = driver.build_trainer(opts)
     assert tr.eps == 0.001 and tr.defer_metrics is True  # tol -> eps
     assert (tr.batch_size, tr.max_iter, tr.header) == (32, 100, "CIFAR10_DenseNet")
+    tr = driver.build_trainer(usps_cnn_mu0_01_K0.options(
+        device="cpu", eigensolver="lanczos", lanczos_m=6, rand_init=True, remat=True,
+        aug_test=True))
+    assert (tr.eigensolver, tr.lanczos_m, tr.rand_init, tr.remat) == ("lanczos", 6, True, True)
 
 
 @pytest.mark.parametrize("key,value,match", [
@@ -297,8 +431,6 @@ def test_unknown_or_unported_config_keys_raise(key, value, match):
 
 
 def test_unported_config_choices_raise():
-    with pytest.raises(NotImplementedError, match="aug"):
-        usps_cnn_mu0_01_K0.options(device="cpu", aug_test=True)
     with pytest.raises(NotImplementedError, match="sam"):
         forest_best.options(device="cpu", optimizer="sam")
 

@@ -130,20 +130,20 @@ def test_entry_points_need_the_card_unless_told():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             SpectralTrainer(task, topt.sgd(0.1))
-    for bad in (dict(remat=True), dict(lobpcg=True), dict(scan_steps=4),
-                dict(rand_init=True), dict(donate=True), dict(mem_track=True),
-                dict(profile_dir="p"), dict(mesh=object()),
-                dict(eigensolver="lanczos")):
+    for bad in (dict(lobpcg=True), dict(scan_steps=4), dict(donate=True),
+                dict(mem_track=True), dict(profile_dir="p"), dict(mesh=object())):
         with pytest.raises(NotImplementedError):
+            SpectralTrainer(task, topt.sgd(0.1), device="cpu", **bad)
+    for bad in (dict(eigensolver="arnoldi"),
+                dict(eigensolver="lanczos", pow_iter_momentum=0.9)):
+        with pytest.raises(ValueError):
             SpectralTrainer(task, topt.sgd(0.1), device="cpu", **bad)
 
 
 def test_config_builds_the_trainer_with_overrides():
-    with pytest.raises(NotImplementedError, match="augment"):
-        cifar10_densenet_mu0_01_K0.options()
-    with pytest.raises(NotImplementedError, match="remat"):
-        build_trainer(cifar10_densenet_mu0_01_K0.options(augment=False,
-                                                         device="cpu"))
+    tr = build_trainer(cifar10_densenet_mu0_01_K0.options(device="cpu"))
+    assert tr.remat and tr.defer_metrics and tr.eigensolver == "power"
+    assert cifar10_densenet_mu0_01_K0.options()["train_loader"].augment is not None
     opts = cifar10_densenet_mu0_01_K0.options(remat=False, hvp_micro=2,
                                               augment=False, device="cpu")
     tr = build_trainer(opts)
@@ -197,3 +197,25 @@ def test_lambda_lr_schedule():
     s = LambdaLR(0.1, lambda i: 1.0 if i < 2 else 0.2)
     assert s.lr == 0.1
     assert [s.step() for _ in range(3)] == [0.1, 0.1 * 0.2, 0.1 * 0.2]
+
+
+@pytest.mark.parametrize("eigensolver", ["power", "lanczos", "auto"])
+def test_eigensolver_resolution_matches_jax(eigensolver):
+    """The resolved solver and the Lanczos depth equal the JAX trainer's
+    over ``rand_init`` x ``pow_iter_eps`` x ``lanczos_m`` x momentum."""
+    from optwboundeigenval_tpu.models import ForestNet as JaxForestNet
+    from optwboundeigenval_tpu_torch.models.mlp_forest import ForestNet
+
+    for rand_init in (False, True):
+        for eps in (1e-12, 1e-6, 1e-3, 5e-3, 6e-3, 0.05, 0.5, 3.0):
+            for lanczos_m in (None, 5):
+                for momentum in ((None, 0.9) if eigensolver != "lanczos" else (None,)):
+                    kw = dict(eigensolver=eigensolver, rand_init=rand_init,
+                              pow_iter_eps=eps, lanczos_m=lanczos_m,
+                              pow_iter_momentum=momentum)
+                    j = JaxTrainer(JaxTask(model=JaxForestNet()), jax_sgd(0.1), **kw)
+                    t = SpectralTrainer(Task(model=ForestNet()), topt.sgd(0.1),
+                                        device="cpu", **kw)
+                    assert (t.eigensolver, t.lanczos_m, t.rand_init) == \
+                        (j.eigensolver, j.lanczos_m, j.rand_init), kw
+                    assert t.eigensolver_requested == eigensolver
