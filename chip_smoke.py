@@ -63,8 +63,21 @@ Phases (any failure exits non-zero and prints no result line):
     on 4 USPS batches; and the port's plain-autograd HVP and vGHv against
     ``torch.func`` forms of them (``jvp(grad)`` and ``grad(<jvp(grad), v>)``)
     on the three models (float64 agreement, float32 times);
-12. a ``{"kernels": [...]}`` line (K1's launches summed over phases 4, 7,
-    8, 10 and 11, each counted from 0 just before its run), the card's
+12. the comparators: the ten configs ``forest_``/``usps_cnn_`` +
+    ``lobpcg``, ``kfac``, ``sam``, ``entropy_sgd`` and
+    ``asymmetric_valley`` through ``driver.run`` at full width on their
+    full synthetic stand-ins for 1 epoch (Asymmetric Valley cut to 4 so
+    that SWA, ``bn_update``, the SGD hunt and the interpolation get their
+    turn), each with s/epoch, steps/s, mean ``pow_iters``, a profiled step
+    and its log rows, test lines, parameters and factors checked; the
+    K-FAC refresh and apply times for Forest, USPS and DenseNet-40;
+    float64 card vs CPU for a ``usps_cnn_lobpcg`` step, a K-FAC step on a
+    ``TCov``/``TInv`` boundary, a SAM step and an Entropy-SGD step with its
+    noise given; and one DenseNet-40 LOBPCG step with ``hvp_micro=2``,
+    K-FAC over its 40 conv and dense layers, K1 launching ``2 * (pow_iters
+    + 2)`` times;
+13. a ``{"kernels": [...]}`` line (K1's launches summed over phases 4, 7,
+    8, 10, 11 and 12, each counted from 0 just before its run), the card's
     name and power limit, and last the ``{"ok": true, "device": ...}``
     line.
 
@@ -464,31 +477,35 @@ def phase_slice(device="cuda", steps=STEPS):
     return trainer, trainer.put_batch(batch), launches
 
 
-def phase_profile(trainer, batch, label="densenet40 hvp_micro=2"):
-    """One more step under ``torch.profiler``: the device's busy share of
-    the step's wall time, K1's share, and the kernels that take most."""
+def phase_profile(trainer, batch, label="densenet40 hvp_micro=2", step=None):
+    """One more step under ``torch.profiler`` (``trainer.train_step``, or
+    ``step()``): the device's busy share of the step's wall time, K1's
+    share, and the kernels that take most.  Returns the busy share, or
+    None when the profiler saw no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        m = trainer.train_step(batch)
+        m = trainer.train_step(batch) if step is None else step()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kernels)
     if busy_us == 0:
         log("profile: the profiler recorded no device time (not measured)")
-        return
+        return None
     k1_us = sum(e.self_device_time_total for e in kernels if "axpy" in e.key)
-    log(f"profile {label} (one step, pow_iters {m['pow_iters']}): wall {wall_us / 1e3:.1f} ms, "
+    iters = m["pow_iters"] if isinstance(m, dict) and "pow_iters" in m else "-"
+    log(f"profile {label} (one step, pow_iters {iters}): wall {wall_us / 1e3:.1f} ms, "
         f"device busy {busy_us / 1e3:.1f} ms ({100 * busy_us / wall_us:.1f}%), "
         f"idle {100 * (1 - busy_us / wall_us):.1f}%, K1 {k1_us / 1e3:.2f} ms "
         f"({100 * k1_us / busy_us:.2f}% of busy), "
         f"{sum(e.count for e in kernels)} kernel launches")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
         log(f"  {e.self_device_time_total / 1e3:9.2f} ms {e.count:6d}x  {e.key[:90]}")
+    return busy_us / wall_us
 
 
 def phase_card_vs_cpu(trainer, batch):
@@ -741,6 +758,9 @@ def _as_f64(trainer):
     trainer.model_state = {k: t.double() if t.is_floating_point() else t
                            for k, t in trainer.model_state.items()}
     trainer.opt_state = trainer.optimizer.init(trainer.params)
+    if trainer.optimizer.build_extra_state is not None:
+        trainer.opt_state = trainer.optimizer.build_extra_state(
+            trainer.opt_state, trainer.task, trainer.params, trainer.model_state)
     trainer.v = tree_uniform_like(trainer.params)
     return trainer
 
@@ -991,6 +1011,271 @@ def _curvature_forms(device, reps=20):
             + "; ".join(times))
 
 
+# the ten comparator configs of phase 12; Asymmetric Valley cut to 4 epochs
+# with SWA from epoch 2, the SGD hunt from epoch 3 and a 9-point sweep
+AV_SMALL = dict(max_iter=4, swa_start=2, sgd_start=3, save_freq=1, eval_freq=1,
+                distances=2, division_part=4)
+COMPARATORS = ("forest_lobpcg", "usps_cnn_lobpcg", "forest_kfac", "usps_cnn_kfac",
+               "forest_sam", "usps_cnn_sam", "forest_entropy_sgd", "usps_cnn_entropy_sgd",
+               "forest_asymmetric_valley", "usps_cnn_asymmetric_valley")
+
+
+def _factors(trainer, fields=("m_aa", "m_gg", "Q_a", "d_a", "Q_g", "d_g")):
+    """The K-FAC factor tensors a trainer holds (LOBPCG's preconditioner,
+    the K-FAC optimizer's state), the ``fields`` of each layer."""
+    trees = [trainer._precond_state, trainer.opt_state.get("factors")]
+    return [f[k] for tree in trees if tree for f in tree.values() for k in fields]
+
+
+def run_comparator(name, device="cuda", tmp="."):
+    """``driver.run`` of the config ``name`` for one epoch (Asymmetric
+    Valley: ``AV_SMALL``) on its full synthetic stand-in, K1's count set
+    to 0 just before and read just after; prints s/epoch, steps/s, mean
+    ``pow_iters`` and the busy share of one profiled step, and fails on
+    a non-finite log row or test line, or a parameter or factor off the
+    card.  Returns K1's launches."""
+    import importlib
+
+    from optwboundeigenval_tpu_torch.ops import pallas_kernels as pk
+    from optwboundeigenval_tpu_torch.train import driver
+
+    av = name.endswith("asymmetric_valley")
+    mod = importlib.import_module(f"optwboundeigenval_tpu_torch.configs.{name}")
+    over = dict(AV_SMALL, plot_dir=f"{tmp}/{name}/plots") if av else dict(max_iter=1)
+    opts = mod.options(device=device, log_dir=f"{tmp}/{name}/logs",
+                       model_dir=f"{tmp}/{name}/models", **over)
+    epochs = opts["max_iter"]
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    pk.axpy_accumulate.launches = 0
+    sync()
+    t0 = time.perf_counter()
+    trainer = driver.run(opts)
+    sync()
+    wall = time.perf_counter() - t0
+    launches = pk.axpy_accumulate.launches
+    with open(trainer.log_file) as fh:
+        lines = fh.read().splitlines()
+    rows = [ln for ln in lines[1:] if ln[:1].isdigit()]
+    tests = [ln for ln in lines if ln.split(":")[0].endswith(("Loss", "Accuracy", "F1"))]
+    t = trainer.timers.totals
+    steps = trainer.steps_done if av else len(trainer.epoch_pow_iters)
+    per_epoch = wall / epochs if av else t["Iteration"]
+    iters = (f"mean pow_iters {trainer.mean_pow_iters:.2f}" if trainer.pow_iter and not av
+             else "no power iteration")
+    train_loader = driver._loaders(opts, trainer.batch_size)[0]
+    data = next(iter(train_loader))
+    step = (lambda: trainer.train_epoch([data])) if av else None
+    busy = (phase_profile(trainer, trainer.put_batch(data), f"{name}", step)
+            if device == "cuda" else None)
+    log(f"{name}: {trainer.ndim} parameters, {trainer.optimizer.name}, {steps} steps in "
+        f"{epochs} epochs, driver.run {wall:.1f} s, {per_epoch:.2f} s/epoch, "
+        f"{steps / t['G']:.2f} steps/s, {iters}, busy share of one profiled step "
+        + ("not measured" if busy is None else f"{100 * busy:.1f}%")
+        + f"; K1 launches {launches}")
+    if av:
+        log(f"{name}: swa_n {trainer.swa_n}, the hunt found an SGD point: "
+            f"{trainer.sgd_path is not None}, the interpolation ran: {trainer.interpolated}")
+        if trainer.swa_n < 1:
+            fail(f"{name}: no SWA averaging in {epochs} epochs")
+        if not trainer.interpolated:
+            # the hunt's test failed on this data: sweep from the last SGD
+            # weights instead, so the interpolation runs on the card
+            valid_loader = driver._loaders(opts, trainer.batch_size)[1]
+            trainer.sgd_path = trainer._save_full("sgd_last")
+            t1 = time.perf_counter()
+            trainer.interpolation(train_loader, valid_loader)
+            sync()
+            res = np.loadtxt(os.path.join(trainer.log_dir,
+                                          "asymmetric_valley_test_acc_results.txt"))
+            log(f"{name}: the interpolation from the last SGD weights: {len(res)} points in "
+                f"{time.perf_counter() - t1:.2f} s, valid accuracy {res.tolist()}")
+            if not (trainer.interpolated and np.isfinite(res).all()):
+                fail(f"{name}: the interpolation did not run or is not finite")
+    if trainer.lobpcg:
+        log(f"{name}: {len(trainer._precond_state)} factored layers, refit counter "
+            f"{trainer._kfac_iter} of {trainer.kfac_batch}")
+    for ln in rows + tests:
+        log(f"  {ln}")
+    if len(rows) != epochs or not all(_finite_floats(r) for r in rows):
+        fail(f"{name}: the log holds {len(rows)} rows, expected {epochs} finite ones")
+    if len(tests) < 6 or not all(math.isfinite(float(ln.split(":")[1])) for ln in tests):
+        fail(f"{name}: the train and test lines are missing or not finite")
+    tensors = list(trainer.params.values()) + _factors(trainer)
+    if trainer.optimizer.needs_stats or trainer.lobpcg:
+        if not _factors(trainer):
+            fail(f"{name}: no K-FAC factors")
+    if device == "cuda" and not all(x.is_cuda for x in tensors):
+        fail(f"{name}: a parameter or factor is not on the card")
+    return launches
+
+
+def kfac_times(device="cuda", reps=5):
+    """One K-FAC refresh (capture, EMA from identity, the ``eigh``s) and one
+    preconditioner apply on the card for Forest, USPS (batch 128) and
+    DenseNet-40 (batch 32), float32, CUDA events; beside them the capture
+    and the ``eigh``s alone, and the ``eigh``s on the host."""
+    from optwboundeigenval_tpu_torch.configs import (
+        cifar10_densenet_mu0_01_K0, forest_best, usps_cnn_mu0_01_K0)
+    from optwboundeigenval_tpu_torch.ops import kfac
+    from optwboundeigenval_tpu_torch.train.task import Task
+
+    out = {}
+    for label, mod, rows, kw in (("ForestNet b128", forest_best, 128, {}),
+                                 ("CNNUSPS b128", usps_cnn_mu0_01_K0, 128, {}),
+                                 ("DenseNet-40 b32", cifar10_densenet_mu0_01_K0, 32,
+                                  {"augment": False})):
+        model, bn, batch = _first_batch(mod, rows, **kw)
+        task = Task(model=model, has_batch_stats=bn)
+        p, s = task.init(torch.Generator().manual_seed(1226), torch.device(device))
+        b = {k: torch.as_tensor(a).to(device) for k, a in batch.items()}
+        f = kfac.fit_factors(task, p, s, b, sample_targets=False)
+        sizes = sorted((v["m_aa"].shape[0], v["m_gg"].shape[0]) for v in f.values())
+        rng = np.random.default_rng(1226)
+        r = {k: torch.from_numpy(rng.normal(size=tuple(t.shape))).to(device, t.dtype)
+             for k, t in p.items()}
+        refresh = cuda_time_ms(lambda: kfac.fit_factors(task, p, s, b, sample_targets=False),
+                               reps, 1)
+        capture = cuda_time_ms(lambda: kfac.capture(task, p, s, b), reps, 1)
+        eigh = cuda_time_ms(lambda: kfac.compute_inverses(f), reps, 1)
+        apply = cuda_time_ms(lambda: kfac.precond_apply(f, r), 20)
+        f_cpu = {n: {k: t.cpu() for k, t in v.items()} for n, v in f.items()}
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            kfac.compute_inverses(f_cpu)
+        eigh_host = 1e3 * (time.perf_counter() - t0) / reps
+        log(f"kfac {label}: {len(f)} factored layers (A, G sizes {sizes[-3:]} largest), "
+            f"refresh {refresh:.3f} ms (capture {capture:.3f} ms, eighs {eigh:.3f} ms on the "
+            f"card, {eigh_host:.3f} ms on the host), preconditioner apply {apply:.3f} ms "
+            f"(wall, CUDA events)")
+        out[label] = dict(refresh_ms=refresh, capture_ms=capture, eigh_ms=eigh,
+                          eigh_host_ms=eigh_host, apply_ms=apply, layers=len(f))
+    return out
+
+
+def comparators_card_vs_cpu(device="cuda"):
+    """Float64 on the card against the CPU: one ``usps_cnn_lobpcg``
+    ``train_step`` (its first refit included), one K-FAC step on a ``TCov``
+    and ``TInv`` boundary, one SAM step and one Entropy-SGD step with its
+    noise given; each within ``CARD_F64_RTOL``."""
+    from optwboundeigenval_tpu_torch.configs import (
+        usps_cnn_entropy_sgd, usps_cnn_kfac, usps_cnn_lobpcg, usps_cnn_sam)
+    from optwboundeigenval_tpu_torch.ops import curvature
+    from optwboundeigenval_tpu_torch.train.driver import build_trainer
+
+    batch = next(iter(usps_cnn_lobpcg.options(device="cpu")["train_loader_na"]))
+    rng = np.random.default_rng(1226)
+    for name, mod in (("usps_cnn_lobpcg", usps_cnn_lobpcg), ("usps_cnn_kfac", usps_cnn_kfac),
+                      ("usps_cnn_sam", usps_cnn_sam),
+                      ("usps_cnn_entropy_sgd", usps_cnn_entropy_sgd)):
+        noise = None
+        res = {}
+        for dev in (device, "cpu"):
+            tr = _as_f64(build_trainer(mod.options(device=dev)))
+            p0 = {k: t.clone() for k, t in tr.params.items()}
+            if name.endswith("entropy_sgd"):
+                if noise is None:
+                    noise = [{k: torch.from_numpy(rng.normal(size=tuple(t.shape)))
+                              for k, t in p0.items()} for _ in range(5)]
+                b = tr.put_batch(batch)
+                loss_fn = tr._loss_fn(tr.model_state)
+                _, g = curvature.value_and_grad(loss_fn, tr.params, b)
+                kw = tr._opt_kwargs(loss_fn, tr.model_state, b)
+                tr.params, tr.opt_state = tr.optimizer.step(
+                    g, tr.opt_state, tr.params, noise=[{k: z.to(dev) for k, z in n.items()}
+                                                       for n in noise], **kw)
+                m = {"merr": float(tr.opt_state["merr"]), "mf": float(tr.opt_state["mf"])}
+            else:
+                m = tr.train_step(batch)
+            # the running factors: eigh's eigenvectors differ between
+            # cuSOLVER and LAPACK in signs and in degenerate eigenspaces
+            fac = _factors(tr, ("m_aa", "m_gg"))
+            res[dev] = (m, {k: tr.params[k] - p0[k] for k in p0}, fac)
+        (mc, dc, fc), (mh, dh, fh) = res[device], res["cpu"]
+        keys = [k for k in ("rho", "g", "gradf_norm", "gradg_norm", "mf") if k in mc
+                and mh[k] != 0]
+        errs = {k: abs(mc[k] - mh[k]) / abs(mh[k]) for k in keys}
+        errs["update"] = _rel(dc, dh)
+        if fh:
+            errs["factors"] = max(_rel(a, b) for a, b in zip(fc, fh))
+        worst = max(errs.values())
+        log(f"float64 {name} step, card vs cpu: relative errors "
+            + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+            + f" (bound {CARD_F64_RTOL:g})")
+        if not worst < CARD_F64_RTOL or mc.get("pow_iters") != mh.get("pow_iters"):
+            fail(f"float64 {name}: the card and the CPU disagree")
+
+
+def densenet_lobpcg_step(device="cuda"):
+    """One ``cifar10_densenet_mu0_01_K0`` step under LOBPCG with
+    ``hvp_micro=2``: K-FAC over all 40 conv and dense layers, and K1
+    launching ``2 * (pow_iters + 2)`` times.  Returns K1's launches."""
+    from optwboundeigenval_tpu_torch.configs import cifar10_densenet_mu0_01_K0 as cfg
+    from optwboundeigenval_tpu_torch.ops import pallas_kernels as pk
+    from optwboundeigenval_tpu_torch.train.driver import build_trainer
+
+    opts = cfg.options(lobpcg=True, kfac_batch=8, kfac_rand=False, hvp_micro=2, remat=False,
+                       augment=False, device=device)
+    tr = build_trainer(opts)
+    batch = next(iter(opts["train_loader"]))
+    tr.init_state()
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    pk.axpy_accumulate.launches = 0
+    sync()
+    t0 = time.perf_counter()
+    m = tr.train_step(batch)
+    sync()
+    ms = 1e3 * (time.perf_counter() - t0)
+    launches = pk.axpy_accumulate.launches
+    want = tr.hvp_micro * (m["pow_iters"] + 2)
+    log(f"densenet40 lobpcg step: rho {m['rho']:.6g} pow_iters {m['pow_iters']} g {m['g']:.6g} "
+        f"step_ms {ms:.1f} (the first refit included), {len(tr._precond_state)} factored "
+        f"layers, K1 launches {launches} (expected {want})")
+    if not (m["step_ok"] and math.isfinite(m["rho"])):
+        fail(f"densenet40 lobpcg step: {m}")
+    if len(tr._precond_state) != 40:
+        fail(f"densenet40 lobpcg: {len(tr._precond_state)} factored layers, expected 40")
+    if device == "cuda" and launches != want:
+        fail(f"densenet40 lobpcg step: {launches} K1 launches, expected {want}")
+    # the Asymmetric Valley's bn_update where there is BatchNorm: 4 batches
+    from optwboundeigenval_tpu_torch.data.loaders import ArrayLoader
+    from optwboundeigenval_tpu_torch.train.asymmetric_valley import bn_update
+
+    ld = opts["train_loader"]
+    sync()
+    t0 = time.perf_counter()
+    stats = bn_update(tr.task, tr.params, tr.model_state,
+                      ArrayLoader(ld.x[:128], ld.y[:128], 32), tr.put_batch)
+    sync()
+    moved = sum(not torch.equal(stats[k], t) for k, t in tr.model_state.items())
+    log(f"densenet40 bn_update over 4 batches: {1e3 * (time.perf_counter() - t0):.1f} ms, "
+        f"{moved} of {len(stats)} statistics recomputed")
+    if moved != len(stats) or not all(bool(torch.isfinite(t).all()) and t.is_cuda == (
+            device == "cuda") for t in stats.values()):
+        fail("densenet40 bn_update: statistics not recomputed, not finite or off the card")
+    return launches
+
+
+def phase_comparators(device="cuda"):
+    """Phase 12: the ten comparator configs through ``driver.run``, the
+    K-FAC refresh and apply times, float64 card vs CPU, and the DenseNet-40
+    LOBPCG step through K1.  Returns K1's launches."""
+    launches = 0
+    t0 = time.perf_counter()
+    lap = lambda what: log(f"phase 12: {what} done, {time.perf_counter() - t0:.1f} s in")
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in COMPARATORS:
+            launches += run_comparator(name, device, tmp)
+            lap(name)
+    if device == "cuda":
+        kfac_times(device)
+        lap("kfac times")
+    comparators_card_vs_cpu(device)
+    lap("float64 card vs cpu")
+    launches += densenet_lobpcg_step(device)
+    lap("densenet40 lobpcg step")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs an NVIDIA GPU")
@@ -1022,6 +1307,8 @@ def main():
     done("phase 10")
     launches += phase_eigensolvers(power_hvps)
     done("phase 11")
+    launches += phase_comparators()
+    done("phase 12")
     kernels = [{**entry, "launches": launches}]
     log(json.dumps({"kernels": kernels}))
     log(smi)

@@ -9,7 +9,13 @@ cross entropy, tol 0.001; ``test_loader_aug`` holds the two augmented
 test loaders, which ``aug_test=True`` evaluates.
 
 Forest: params/forest_best.py — the MLP, SGD lr 0.5 with LambdaLR
-``1 / (1 + k)``, mu 0.0028, K 1, batch 128.
+``1 / (1 + k)`` on the optimizer's own base lr, mu 0.0028, K 1, batch
+128; the comparators take ``lr`` 0.5 from here, USPS's their defaults.
+
+Both take ``lobpcg`` (params/forest_lobpcg.py: the K-FAC-preconditioned
+power iteration) and ``asymmetric_valley`` (the Asymmetric Valley
+trainer), and ``optimizer`` one of ``adam``, ``sgd``, ``sam`` (SAM over
+SGD, rho 0.05), ``entropy_sgd`` (L 5) and ``kfac``.
 
 CIFAR-10: params/cifar10_DenseNet_mu0_01_K100.py — DenseNet-40-12, SGD
 lr 0.1 momentum 0.9 weight decay 1e-4, milestone LR 1 / 0.2 / 0.04 at
@@ -20,6 +26,14 @@ JAX package's defaults ``augment=True``, ``remat=True`` and
 
 from __future__ import annotations
 
+import torch
+
+
+def lobpcg_alpha(i: int) -> float:
+    """The LOBPCG recipes' damping ``exp(-4 i - 2)`` (params/forest_lobpcg.py),
+    in float32 as the JAX configs compute it on a float32 ``i``."""
+    return float(torch.exp(torch.tensor(-4.0 * i - 2.0, dtype=torch.float32)))
+
 
 def usps_config(
     mu=0.01,
@@ -27,6 +41,8 @@ def usps_config(
     Kmin=0.0,
     optimizer: str = "adam",
     pow_iter: bool = True,
+    lobpcg: bool = False,
+    asymmetric_valley: bool = False,
     batch_size: int = 128,
     max_iter: int = 100,
     augment: bool = False,
@@ -47,6 +63,8 @@ def usps_config(
         "model": CNNUSPS(),
         "loss": "cross_entropy",
         "pow_iter": pow_iter,
+        "lobpcg": lobpcg,
+        "asymmetric_valley": asymmetric_valley,
     }
     opt["train_loader"], opt["valid_loader"] = usps.get_train_valid_loader(
         batch_size=batch_size, augment=augment)
@@ -65,6 +83,8 @@ def forest_config(
     Kmin=0.0,
     optimizer: str = "sgd",
     pow_iter: bool = True,
+    lobpcg: bool = False,
+    asymmetric_valley: bool = False,
     batch_size: int = 128,
     max_iter: int = 100,
     lr: float = 0.5,
@@ -87,6 +107,8 @@ def forest_config(
         "model": ForestNet(),
         "loss": "cross_entropy",
         "pow_iter": pow_iter,
+        "lobpcg": lobpcg,
+        "asymmetric_valley": asymmetric_valley,
     }
     opt.update(forest.get_data(data_root))
     opt["optimizer"] = _make_optimizer(optimizer, lr=lr)
@@ -151,16 +173,22 @@ def cifar10_config(
 
 
 def _make_optimizer(name: str, lr: float = None, default_adam: bool = False):
-    """``adam`` or ``sgd`` at the JAX package's default rates; the
-    comparator optimizers (``sam``, ``entropy_sgd``, ``kfac``) are not
-    ported yet and raise."""
+    """The optimizer ``name`` at the JAX package's default rates
+    (_families.py:177-191)."""
     from optwboundeigenval_tpu_torch.optim.api import adam, sgd
+    from optwboundeigenval_tpu_torch.optim.entropy_sgd import EntropySGD
+    from optwboundeigenval_tpu_torch.optim.kfac_optimizer import KFAC
+    from optwboundeigenval_tpu_torch.optim.sam import SAM
 
     name = name.lower()
     if name == "adam":
         return adam(lr or 1e-3)
     if name == "sgd":
         return sgd(lr or (0.1 if not default_adam else 0.5))
-    if name in ("sam", "entropy_sgd", "kfac"):
-        raise NotImplementedError(f"optimizer {name!r} is not ported")
+    if name == "sam":
+        return SAM(sgd(lr or 0.1), rho=0.05)
+    if name == "entropy_sgd":
+        return EntropySGD(lr=lr or 0.1, L=5)
+    if name == "kfac":
+        return KFAC(lr=lr or 0.001)
     raise ValueError(f"unknown optimizer {name}")

@@ -1,0 +1,11 @@
+"""Forest with the K-FAC comparator (reference params/forest_KFAC.py).
+
+``options(**overrides)`` takes ``key=value`` overrides as ``main`` does.
+"""
+
+from optwboundeigenval_tpu_torch.configs._families import forest_config
+
+
+def options(**overrides):
+    return forest_config(**{"mu": 0.0, "K": 0.0, "optimizer": "kfac", "pow_iter": False,
+                            **overrides})

@@ -10,8 +10,10 @@ Why not ``F.batch_norm``:
   the autograd graph is exact at every order;
 * it updates the running buffers in place, which a ``torch.func``
   transform cannot carry.  Here a train-mode forward never touches the
-  buffers; it reports the updated statistics into ``stats_out`` when the
-  caller asks (``Task.train_loss``), and only then.
+  buffers; it reports the batch's statistics into ``stats_out`` when the
+  caller asks, and only then: ``Task.train_loss`` folds them into the
+  running statistics with the module's momentum, and the Asymmetric
+  Valley's ``bn_update`` averages them over a loader.
 
 Statistics: batch mean, biased variance ``E[(x - E[x])^2]``, eps 1e-5.
 The JAX model takes flax's one-pass ``E[x^2] - E[x]^2``; the two agree
@@ -61,12 +63,7 @@ class BatchNorm2d(nn.Module):
             var = (y * y).mean(dims)
             if stats_out is not None:
                 n = x.numel() // x.shape[1]
-                unbiased = var.detach() * (n / max(n - 1.0, 1.0))
-                m = self.momentum
-                stats_out[self] = (
-                    (1 - m) * self.running_mean + m * mean.detach(),
-                    (1 - m) * self.running_var + m * unbiased,
-                )
+                stats_out[self] = (mean.detach(), var.detach() * (n / max(n - 1.0, 1.0)))
         else:
             var = self.running_var
             y = x - self.running_mean[None, :, None, None]

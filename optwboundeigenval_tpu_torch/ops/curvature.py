@@ -57,13 +57,19 @@ def _leaves(params: Tree) -> Tree:
     return {k: p.detach().requires_grad_(True) for k, p in params.items()}
 
 
-def grad(loss_fn: LossFn, params: Tree, batch) -> Tree:
-    """Gradient of the loss at ``params`` (reference ``prepare_grad``,
+def value_and_grad(loss_fn: LossFn, params: Tree, batch) -> Tuple[torch.Tensor, Tree]:
+    """``(loss, gradient)`` at ``params`` (reference ``prepare_grad``,
     opt.py:175-192)."""
     leaves = _leaves(params)
     with torch.enable_grad():
-        g = torch.autograd.grad(loss_fn(leaves, batch), list(leaves.values()))
-    return dict(zip(leaves, g))
+        loss = loss_fn(leaves, batch)
+        g = torch.autograd.grad(loss, list(leaves.values()))
+    return loss.detach(), dict(zip(leaves, g))
+
+
+def grad(loss_fn: LossFn, params: Tree, batch) -> Tree:
+    """Gradient of the loss at ``params``."""
+    return value_and_grad(loss_fn, params, batch)[1]
 
 
 def _hv_graph(loss_fn: LossFn, params: Tree, batch, v: Tree):

@@ -12,7 +12,10 @@ Reference ``comp_rho`` (opt.py:418-533), kept exactly:
   below ``eps``; on stop the returned ``v`` is the one whose HVP was
   just measured and the counter holds the number of HVPs;
 * damped update ``v <- v + alpha (Hv - v)``, ``alpha`` a scalar or a
-  callable of the iteration index; optional heavy-ball ``momentum``;
+  callable of the iteration index; under a preconditioner ``P`` (the
+  inexact-LOBPCG mode, opt.py:426-430, 491-493) ``v <- v + alpha P(r)``
+  with the residual ``r`` taken after the sign flip; optional heavy-ball
+  ``momentum``;
 * budget ``min(ndim, max_iter)``;
 * discard: not converged -> ``rho = -1`` and ``v`` reset.
 
@@ -89,12 +92,16 @@ def power_iteration(
 ) -> PowerIterResult:
     """Estimate the dominant eigenpair of the symmetric ``matvec``.
 
-    ``momentum`` runs the heavy-ball recurrence ``w = H v - beta v_prev``
-    with ``beta = (momentum * lam / 2)^2`` and a joint renormalisation
-    of ``(v, v_prev)``; it needs no sign flip and ignores ``alpha``."""
-    if precond is not None:
-        raise NotImplementedError("preconditioned (LOBPCG) power iteration "
-                                  "is not ported")
+    ``precond`` maps the residual through an approximate inverse (the
+    K-FAC apply, ``ops/kfac.precond_apply``): the update is then
+    ``normalize(v + alpha * precond(r))``.  ``momentum`` runs the
+    heavy-ball recurrence ``w = H v - beta v_prev`` with ``beta =
+    (momentum * lam / 2)^2`` and a joint renormalisation of ``(v,
+    v_prev)``; it needs no sign flip, ignores ``alpha`` and does not
+    compose with ``precond``."""
+    if momentum is not None and precond is not None:
+        raise ValueError("momentum-accelerated power iteration does not compose "
+                         "with a preconditioner; use one or the other")
     n_iters = int(min(tree_size(v0), max_iter)) if cap_by_dim else int(max_iter)
     first = next(iter(v0.values()))
     sdtype = torch.promote_types(torch.float32, first.dtype)
@@ -128,7 +135,8 @@ def power_iteration(
             break
         if momentum is None:
             a = _alpha_at(alpha, i - 1)
-            v_unnorm = tree_axpy(a, tree_sub(hv, v), v)
+            direction = tree_sub(hv, v) if precond is None else precond(r)
+            v_unnorm = tree_axpy(a, direction, v)
             v = tree_scale(1.0 / tree_norm(v_unnorm), v_unnorm)
         else:
             beta = (momentum * lam / 2.0) ** 2

@@ -37,6 +37,15 @@ def load_checkpoint(path: str) -> Dict[str, Any]:
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
+def to_device(tree, device):
+    """A loaded payload with every tensor moved to ``device``."""
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    return tree
+
+
 def restore_like(template, payload):
     """``payload`` in the structure, devices and dtypes of ``template``;
     raises if the keys differ."""

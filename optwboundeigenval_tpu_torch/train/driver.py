@@ -8,11 +8,14 @@ passes that dict into the trainer constructor by reflection
 ``eps``), and ``run`` executes the cascade train -> test -> parse ->
 aug_test -> rho_test off the option flags (opt.py:2018-2102).
 
-An option that is neither a trainer argument nor one the driver reads
-raises, so a setting the port does not implement is never dropped
-without a word.  The JAX driver's ``device_data``, ``pretrained_npz``,
-``comp_test``, ``saliency``, ``jaccard``, ``jaccard_comp`` and
-``asymmetric_valley`` are not ported and raise when set.
+``asymmetric_valley=True`` builds ``AsymmetricValleyTrainer`` with its
+own keywords (``swa_start``, ``sgd_start``, ...) beside the trainer's
+(JAX driver.py:56-69).  An option that is neither a trainer argument,
+an Asymmetric Valley argument nor one the driver reads raises, so a
+setting the port does not implement is never dropped without a word.
+The JAX driver's ``device_data``, ``pretrained_npz``, ``comp_test``,
+``saliency``, ``jaccard`` and ``jaccard_comp`` are not ported and raise
+when set.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from typing import Any, Dict
 import numpy as np
 
 from optwboundeigenval_tpu_torch.data.loaders import ArrayLoader
+from optwboundeigenval_tpu_torch.train.asymmetric_valley import AsymmetricValleyTrainer
 from optwboundeigenval_tpu_torch.train.task import Task, losses
 from optwboundeigenval_tpu_torch.train.trainer import SpectralTrainer
 
@@ -34,14 +38,14 @@ _DRIVER_KEYS = {
     "scheduler", "inputs", "target", "inputs_valid", "target_valid",
     "inputs_test", "target_test", "train_loader", "valid_loader",
     "train_loader_na", "test_loader", "test_loader_aug", "train", "test",
-    "fname", "aug_test", "rho_test", "crops",
+    "fname", "aug_test", "rho_test", "crops", "asymmetric_valley",
     # data facts the Forest loader returns beside its arrays
     "scaler_mean", "scaler_scale",
 }
 # the JAX driver's options whose code is not ported yet; inert when unset,
 # None or False
 _UNPORTED = ("device_data", "pretrained_npz", "comp_test", "saliency",
-             "jaccard", "jaccard_comp", "asymmetric_valley")
+             "jaccard", "jaccard_comp")
 
 
 def arg_dic(fn, options: Dict[str, Any], replace=None) -> Dict[str, Any]:
@@ -61,6 +65,7 @@ def _check_known(options: Dict[str, Any]) -> None:
         if options.get(k):
             raise NotImplementedError(f"option {k}={options[k]!r} is not ported")
     known = (set(inspect.signature(SpectralTrainer.__init__).parameters)
+             | set(inspect.signature(AsymmetricValleyTrainer.__init__).parameters)
              | set(_REPLACE) | _DRIVER_KEYS | set(_UNPORTED))
     unknown = sorted(set(options) - known)
     if unknown:
@@ -68,8 +73,9 @@ def _check_known(options: Dict[str, Any]) -> None:
 
 
 def build_trainer(options: Dict[str, Any]) -> SpectralTrainer:
-    """The trainer a config's options describe.  ``options["device"]``
-    (default: the card) is where it runs."""
+    """The trainer a config's options describe (an
+    ``AsymmetricValleyTrainer`` under ``asymmetric_valley``).
+    ``options["device"]`` (default: the card) is where it runs."""
     _check_known(options)
     task = options.get("task")
     if task is None:
@@ -83,10 +89,13 @@ def build_trainer(options: Dict[str, Any]) -> SpectralTrainer:
             has_dropout=options.get("has_dropout", False),
         )
     kwargs = arg_dic(SpectralTrainer.__init__, options, replace=_REPLACE)
+    trainer = SpectralTrainer
+    if options.get("asymmetric_valley"):
+        kwargs = {**arg_dic(AsymmetricValleyTrainer.__init__, options), **kwargs}
+        trainer = AsymmetricValleyTrainer
     for k in ("task", "optimizer", "scheduler"):
         kwargs.pop(k, None)
-    return SpectralTrainer(task, options["optimizer"], options.get("scheduler"),
-                           **kwargs)
+    return trainer(task, options["optimizer"], options.get("scheduler"), **kwargs)
 
 
 def _loaders(options, batch_size):

@@ -11,7 +11,9 @@ differentiated two and three times.
   BatchNorm running statistics FROZEN: the function whose Hessian is
   regularized (the reference computes HVPs in train mode, opt.py:421).
 * ``train_loss(params, model_state, batch)`` — ``(loss, new_state)``:
-  the running statistics update here, functionally, and only here.
+  the running statistics update here, functionally, and only here;
+  ``batch_stats`` gives the batch's own statistics (mean and unbiased
+  variance per BatchNorm) under the buffers' names.
 * ``predict(params, model_state, batch)`` — eval-mode outputs;
   ``eval_loss`` adds the loss.
 
@@ -151,18 +153,32 @@ class Task:
 
         return f
 
-    @torch.no_grad()
-    def train_loss(self, params, model_state, batch):
-        """``(loss, new_model_state)``; BN running statistics update
-        here and only here."""
+    def _batch_stats(self, params, model_state, batch):
+        """``(outputs, [(buffer name, BatchNorm module, batch statistic)])``
+        of one train-mode forward."""
         stats: dict = {}
         out = self._apply(params, model_state, batch["x"], True,
                           stats if self.has_batch_stats else None)
+        found = [(f"{name}.running_{k}", m, stat)
+                 for name, m in self.model.named_modules() if m in stats
+                 for k, stat in zip(("mean", "var"), stats[m])]
+        return out, found
+
+    @torch.no_grad()
+    def batch_stats(self, params, model_state, batch) -> Tree:
+        """The batch's BatchNorm statistics (mean, unbiased variance) under
+        the running buffers' names."""
+        return {k: stat for k, _, stat in self._batch_stats(params, model_state, batch)[1]}
+
+    @torch.no_grad()
+    def train_loss(self, params, model_state, batch):
+        """``(loss, new_model_state)``; BN running statistics update
+        here and only here, ``(1 - m) * running + m * batch``."""
+        out, found = self._batch_stats(params, model_state, batch)
         new_state = dict(model_state)
-        for name, module in self.model.named_modules():
-            if module in stats:
-                new_state[f"{name}.running_mean"], \
-                    new_state[f"{name}.running_var"] = stats[module]
+        for k, module, stat in found:
+            m = module.momentum
+            new_state[k] = (1 - m) * model_state[k] + m * stat
         return self.loss(out, batch["y"], batch.get("w")), new_state
 
     @torch.no_grad()

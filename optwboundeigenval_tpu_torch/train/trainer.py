@@ -10,9 +10,14 @@ A step (``_step_body``, reference ``iter()`` body, opt.py:580-763):
    takes its plain-autograd form;
 2. ``rho`` by the ``eigensolver`` (damped power iteration, or Lanczos at
    a fixed or early-exit depth), warm-started from the carried
-   eigenvector, or from the uniform vector under ``rand_init``;
+   eigenvector, or from the uniform vector under ``rand_init``; under
+   ``lobpcg`` the power iteration's residual goes through the K-FAC
+   inverse (``ops/kfac.py``), whose factors are refitted every
+   ``kfac_batch`` batches at the pre-step parameters (``_refresh_precond``);
 3. the penalty ``g`` and, when ``g > 0``, ``grad g`` from the vGHv pass;
-4. ``p = grad f + mu * grad g`` and the optimizer step;
+4. ``p = grad f + mu * grad g`` and the optimizer step, with the JAX
+   package's protocol (``grad_fn``, ``rng``, ``stats_fn``, ``err_fn``;
+   ``optim/api.py``) for SAM, Entropy-SGD and K-FAC;
 5. the BatchNorm running statistics, updated on the full batch at the
    PRE-step parameters (the reference advances them in comp_rho's
    forward, before the step mutates the weights).
@@ -42,7 +47,7 @@ import numpy as np
 import torch
 
 from optwboundeigenval_tpu_torch.data.loaders import ArrayLoader
-from optwboundeigenval_tpu_torch.ops import curvature, eigen, spectral
+from optwboundeigenval_tpu_torch.ops import curvature, eigen, kfac, spectral
 from optwboundeigenval_tpu_torch.optim.api import Optimizer
 from optwboundeigenval_tpu_torch.train import checkpoints
 from optwboundeigenval_tpu_torch.train.task import Task
@@ -68,9 +73,8 @@ def resolve_device(device=None) -> torch.device:
 # options of the JAX trainer that this port does not implement yet, with
 # the value under which they are inert
 _UNPORTED = {
-    "lobpcg": False, "precond_builder": None, "scan_steps": 1, "mesh": None,
-    "donate": False, "mem_track": False, "profile_dir": None,
-    "kfac_rand": True, "kfac_ema": False, "kfac_batch": 1, "profile_epoch": 0,
+    "scan_steps": 1, "mesh": None, "donate": False, "mem_track": False,
+    "profile_dir": None, "profile_epoch": 0,
 }
 # test_func words whose evaluation (sigmoid outputs, AUC) is not ported yet
 _UNPORTED_TEST_FUNC = ("auc", "sigmoid", "logit")
@@ -88,20 +92,23 @@ def _as_loader(data, batch_size) -> ArrayLoader:
 
 
 def resolve_eigensolver(eigensolver: str, rand_init: bool, pow_iter_eps: float,
-                       momentum: Optional[float], lanczos_m: Optional[int]):
+                       momentum: Optional[float], lanczos_m: Optional[int],
+                       lobpcg: bool = False):
     """``(method, lanczos_m)`` for the trainer's options (JAX trainer
     lines 151-178).  ``'auto'`` takes the early-exit Lanczos solver where
     power iteration needs many HVPs (``rand_init``, or ``pow_iter_eps <=
-    5e-3``) and power iteration elsewhere or with ``momentum``; its depth
-    cap defaults to ``clip(2 ceil(log10(1 / eps)) + 2, 4, 16)``, any other
-    solver's to 16."""
+    5e-3``) and power iteration elsewhere or with ``momentum`` or
+    ``lobpcg``; its depth cap defaults to ``clip(2 ceil(log10(1 / eps)) +
+    2, 4, 16)``, any other solver's to 16."""
     if eigensolver not in ("power", "lanczos", "auto"):
         raise ValueError(f"unknown eigensolver: {eigensolver!r}")
+    if eigensolver == "lanczos" and lobpcg:
+        raise ValueError("eigensolver='lanczos' does not compose with lobpcg")
     if eigensolver == "lanczos" and momentum is not None:
         raise ValueError("eigensolver='lanczos' does not compose with pow_iter_momentum")
     method = eigensolver
     if eigensolver == "auto":
-        method = ("lanczos_adaptive" if momentum is None
+        method = ("lanczos_adaptive" if momentum is None and not lobpcg
                   and (rand_init or pow_iter_eps <= 5e-3) else "power")
     if lanczos_m is None:
         lanczos_m = 16
@@ -215,11 +222,28 @@ class SpectralTrainer:
         self.pow_iter = pow_iter
         self.ignore_bad_vals = ignore_bad_vals
         self.pow_iter_alpha = pow_iter_alpha
+        if pow_iter_momentum is not None and lobpcg:
+            raise ValueError("pow_iter_momentum does not compose with lobpcg")
         self.pow_iter_momentum = pow_iter_momentum
         self.rand_init = rand_init
         self.eigensolver_requested = eigensolver
         self.eigensolver, self.lanczos_m = resolve_eigensolver(
-            eigensolver, rand_init, pow_iter_eps, pow_iter_momentum, lanczos_m)
+            eigensolver, rand_init, pow_iter_eps, pow_iter_momentum, lanczos_m,
+            lobpcg)
+        # LOBPCG: the power iteration's residual through the K-FAC inverse
+        # (opt.py:426-430, 491-493), its factors refitted every kfac_batch
+        # batches; without kfac_ema each refit starts from identity, the
+        # reference's effective behaviour (its K-FAC step counter never
+        # advances in this mode, so its hooks re-initialise the factors)
+        self.lobpcg = lobpcg
+        self.kfac_rand = kfac_rand
+        self.kfac_ema = kfac_ema
+        if lobpcg and precond_builder is None:
+            precond_builder = kfac.precond_apply
+        self.precond_builder = precond_builder
+        self.kfac_batch = kfac_batch
+        self._precond_state = None
+        self._kfac_iter = kfac_batch
         # remat: the loss under torch.utils.checkpoint, its activations
         # recomputed in each backward pass (curvature.checkpointed)
         self.remat = remat
@@ -282,6 +306,10 @@ class SpectralTrainer:
             return
         self.params, self.model_state = self.task.init(self.generator, self.device)
         self.opt_state = self.optimizer.init(self.params)
+        if self.optimizer.build_extra_state is not None:
+            # model-shaped optimizer state: the K-FAC factors
+            self.opt_state = self.optimizer.build_extra_state(
+                self.opt_state, self.task, self.params, self.model_state)
         self.v = tree_uniform_like(self.params)
 
     @property
@@ -302,7 +330,8 @@ class SpectralTrainer:
         loss_fn = self.task.loss_fn(model_state)
         return curvature.checkpointed(loss_fn) if self.remat else loss_fn
 
-    def _step_body(self, params, model_state, opt_state, v, batch, mu):
+    def _step_body(self, params, model_state, opt_state, v, batch, mu,
+                   precond_state=None):
         """Pure per-batch step: returns ``(params, model_state, opt_state,
         v, metrics)`` with the metrics as device tensors."""
         loss_fn = self._loss_fn(model_state)
@@ -317,7 +346,7 @@ class SpectralTrainer:
 
         gradf_norm = tree_norm(grads_f)
         if self.pow_iter:
-            eig = self._eig(hvp_fn, self._start(v))
+            eig = self._eig(hvp_fn, self._start(v), precond_state)
             sg = spectral.penalty_and_grad(
                 loss_fn, params, batch, eig.v, eig.rho, K=self.K,
                 Kmin=self.Kmin, gradg_clip=self.gradg_clip,
@@ -339,24 +368,83 @@ class SpectralTrainer:
                 "gradg_norm": zero,
             }
 
-        new_params, new_opt_state = self.optimizer.step(direction, opt_state,
-                                                        params)
+        new_params, new_opt_state = self.optimizer.step(
+            direction, opt_state, params, **self._opt_kwargs(loss_fn, model_state, batch))
+        if self.optimizer.wants_err:
+            # the closure's loss and error % (optim.py:24)
+            metrics["opt_mf"] = new_opt_state["mf"]
+            metrics["opt_merr"] = new_opt_state["merr"]
         # BN running statistics at the PRE-step params (opt.py:180-186, 421)
         new_model_state = self._advance_stats(params, model_state, batch)
         return new_params, new_model_state, new_opt_state, new_v, metrics
+
+    def _opt_kwargs(self, loss_fn, model_state, batch):
+        """The optimizer protocol's keywords for this batch (JAX trainer
+        lines 589-635): the plain-loss ``grad_fn``, the trainer's
+        generator, K-FAC's ``stats_fn`` (a capture at the parameters it is
+        given, with sampled targets under the optimizer's ``kfac_rand``)
+        and Entropy-SGD's ``err_fn``."""
+        kw = {"grad_fn": lambda p: curvature.value_and_grad(loss_fn, p, batch),
+              "rng": self.generator}
+        if self.optimizer.needs_stats:
+            def stats_fn(p, rng):
+                targets = (kfac.sample_fisher_targets(self.task, p, model_state, batch, rng)
+                           if self.optimizer.kfac_rand else None)
+                return kfac.capture(self.task, p, model_state, batch, targets)[1]
+            kw["stats_fn"] = stats_fn
+        if self.optimizer.wants_err:
+            kw["err_fn"] = lambda p: self._closure_err(p, model_state, batch)
+        return kw
+
+    def _closure_err(self, params, model_state, batch):
+        """Entropy-SGD's closure (opt.py:673-687, JAX trainer lines
+        603-618): ``(loss, error %)`` of the eval-mode outputs on the
+        batch, the error in float32 as the JAX package computes it."""
+        out = self.task.predict(params, model_state, batch)
+        loss = self.task.loss(out, batch["y"], batch.get("w"))
+        y, w = batch["y"], batch.get("w")
+        if out.dim() > 1 and y.dim() > 1:  # multi-label
+            correct = ((out > 0) == (y > 0.5)).to(torch.float32).mean(dim=-1)
+        else:
+            correct = (out.argmax(dim=-1) == y).to(torch.float32)
+        if w is None:
+            acc = correct.mean()
+        else:
+            w = w.to(torch.float32)
+            acc = (correct * w).sum() / torch.clamp_min(w.sum(), 1e-12)
+        return loss, 100.0 * (1.0 - acc)
 
     def _start(self, v):
         """The eigensolver's start: the carried ``v``, or the uniform
         vector under ``rand_init``."""
         return tree_uniform_like(v) if self.rand_init else v
 
-    def _eig(self, hvp_fn, v0):
+    def _eig(self, hvp_fn, v0, precond_state=None):
+        precond = None
+        if self.precond_builder is not None and precond_state is not None:
+            precond = lambda r: self.precond_builder(precond_state, r)
         return eigen.estimate_dominant_eig(
             hvp_fn, v0, eps=self.pow_iter_eps, max_iter=self.max_pow_iter,
-            alpha=self.pow_iter_alpha, ignore_bad_vals=self.ignore_bad_vals,
-            momentum=self.pow_iter_momentum, method=self.eigensolver,
-            lanczos_m=self.lanczos_m,
+            alpha=self.pow_iter_alpha, precond=precond,
+            ignore_bad_vals=self.ignore_bad_vals, momentum=self.pow_iter_momentum,
+            method=self.eigensolver, lanczos_m=self.lanczos_m,
         )
+
+    def _refresh_precond(self, batch):
+        """LOBPCG: refit the K-FAC factors at the current parameters every
+        ``kfac_batch`` calls (opt.py:426-430; JAX trainer lines 787-809),
+        the first call included; from the previous factors under
+        ``kfac_ema``, else from identity."""
+        if self.precond_builder is None:
+            return
+        if self._kfac_iter >= self.kfac_batch:
+            prev = self._precond_state if self.kfac_ema else None
+            self._precond_state = kfac.fit_factors(
+                self.task, self.params, self.model_state, batch, self.generator,
+                prev=prev, sample_targets=self.kfac_rand)
+            self._kfac_iter = 1
+        else:
+            self._kfac_iter += 1
 
     def _advance_stats(self, params, model_state, batch):
         if not self.task.has_batch_stats:
@@ -377,8 +465,10 @@ class SpectralTrainer:
             self.init_state()
         if mu is None:
             mu = self._mu_now()
+        dev_batch = self.put_batch(batch)
+        self._refresh_precond(dev_batch)
         out = self._step_body(self.params, self.model_state, self.opt_state,
-                              self.v, self.put_batch(batch), float(mu))
+                              self.v, dev_batch, float(mu), self._precond_state)
         new_params, new_model_state, new_opt_state, new_v, metrics = out
         if not fetch:
             self.params, self.model_state = new_params, new_model_state
@@ -409,7 +499,7 @@ class SpectralTrainer:
         new_model_state)``."""
         _, hvp_fn = curvature.linearize_hvp(self._loss_fn(self.model_state),
                                             self.params, batch)
-        eig = self._eig(hvp_fn, self._start(self.v))
+        eig = self._eig(hvp_fn, self._start(self.v), self._precond_state)
         return eig, self._advance_stats(self.params, self.model_state, batch)
 
     # ------------------------------------------------------------------
@@ -427,7 +517,9 @@ class SpectralTrainer:
         if defer:
             # the recovery point if a deferred step turns out non-finite:
             # steps return new tensors, so holding the old dicts is a copy
-            snapshot = (self.params, self.model_state, self.opt_state, self.v)
+            # (the preconditioner too: its refits read the committed params)
+            snapshot = (self.params, self.model_state, self.opt_state, self.v,
+                        self._precond_state, self._kfac_iter)
         for j, data in enumerate(train_loader):
             if j == rbatch:
                 rdata = data
@@ -453,7 +545,8 @@ class SpectralTrainer:
             norms = torch.stack([torch.stack([m["gradf_norm"], m["gradg_norm"]])
                                  for m in deferred])
             if not bool(torch.isfinite(norms).all()):
-                self.params, self.model_state, self.opt_state, self.v = snapshot
+                (self.params, self.model_state, self.opt_state, self.v,
+                 self._precond_state, self._kfac_iter) = snapshot
 
         if self.epoch_pow_iters:
             self.mean_pow_iters = float(np.mean(self.epoch_pow_iters))
@@ -477,7 +570,11 @@ class SpectralTrainer:
             self.f = float(f_sum) / max(w_sum, 1.0)
 
         if self.pow_iter and rdata is not None:
-            eig, self.model_state = self._rho_step(self.put_batch(rdata))
+            batch = self.put_batch(rdata)
+            # the kfac_batch counter ticks on every comp_rho, this one too
+            # (opt.py:426-430), so the refit cadence shifts one slot an epoch
+            self._refresh_precond(batch)
+            eig, self.model_state = self._rho_step(batch)
             self.v = eig.v
             self.rho = float(eig.rho)
             self.norm = float(eig.norm)
@@ -679,7 +776,11 @@ class SpectralTrainer:
         ``self.v`` is left alone.  Writes ``rho_test``'s CSV schema; the
         time column is each batch's wall time, sync included.  (The JAX
         version runs its batches ``vmap``-ed in one program; here each is
-        its own solve.)"""
+        its own solve.)  Under a preconditioner, whose refits are
+        sequential state, it is :meth:`rho_test` (JAX trainer lines
+        1464-1468)."""
+        if self.precond_builder is not None:
+            return self.rho_test(x=x, y=y, loader=loader, fname=fname)
         if fname is not None:
             self.model_load(fname)
         if loader is None:
@@ -757,14 +858,17 @@ class SpectralTrainer:
 
     def save_full(self, tail: str = CKPT_FULL):
         """Everything an exact resume needs: ``save``'s payload plus the
-        optimizer state, the best-model tracking and the CoV window."""
+        optimizer state, the best-model tracking, the CoV window and the
+        LOBPCG preconditioner with its refit counter (the JAX package's
+        checkpoint leaves those two out)."""
         checkpoints.save_checkpoint(
             os.path.join(self.model_dir, self.header2 + tail),
             {"params": self.params, "model_state": self.model_state,
              "opt_state": self.opt_state, "v": self.v, "epoch": self.i,
              "best": [self.best_val_acc, self.best_h, self.best_rho,
                       float(self.best_iter)],
-             "h_hist": list(self._h_hist)})
+             "h_hist": list(self._h_hist),
+             "precond_state": self._precond_state, "kfac_iter": self._kfac_iter})
 
     def resume(self, fname: Optional[str] = None):
         """Restore a ``save_full`` checkpoint; the next ``train()``
@@ -780,6 +884,9 @@ class SpectralTrainer:
         self.best_val_acc, self.best_h = float(b[0]), float(b[1])
         self.best_rho, self.best_iter = float(b[2]), int(b[3])
         self._h_hist = [float(h) for h in payload["h_hist"]]
+        # (a checkpoint written before LOBPCG was ported has neither)
+        self._precond_state = checkpoints.to_device(payload.get("precond_state"), self.device)
+        self._kfac_iter = int(payload.get("kfac_iter", self.kfac_batch))
         self._resume_epoch = self.i + 1
 
     def model_load(self, fname: Optional[str] = None):

@@ -17,6 +17,15 @@ before ``fc`` needs no column permutation.
 ``convert_cnnusps_state_dict``.  CNNUSPS's ``fc1`` reads a (32, 2, 2) map
 flattened CHW here and HWC there, so its columns are permuted as
 ``torch_interop.dense_after_flatten_from_torch`` does.
+
+K-FAC factor state (``ops/kfac.py``): the JAX package keys a layer by its
+flax path (``"fc1"``, ``"Conv_0"``, ``"BottleneckBlock_0/Conv_1"``), the
+port by its module name (the maps above).  A conv's ``A`` factor is in
+``(kh, kw, in_c)`` patch order there and in ``(in_c, kh, kw)`` here, and
+CNNUSPS's ``fc1`` takes the HWC -> CHW column permutation of its weight;
+the bias row and column stay last, and ``G`` is the same on both sides.
+A permutation ``P`` acts as ``m_aa[P][:, P]`` and ``Q_a[P]``, so the
+round trip is exact.
 """
 
 from __future__ import annotations
@@ -167,3 +176,72 @@ def cnnusps_to_jax(params: Tree):
     fp["Dense_1"] = {"kernel": np.ascontiguousarray(_a(params["fc2.weight"]).T),
                      "bias": _a(params["fc2.bias"])}
     return fp
+
+
+_FACTOR_FIELDS = ("m_aa", "m_gg", "Q_a", "d_a", "Q_g", "d_g")
+
+
+def _layer_names(flax_paths) -> Dict[str, str]:
+    """flax path -> port module name of every factored layer."""
+    paths = set(flax_paths)
+    if "Conv_0" in paths:  # CNNUSPS
+        names = dict(_CNNUSPS_CONVS)
+        names.update({"Dense_0": "fc1", "Dense_1": "fc2"})
+        return names
+    if any(p.startswith("BottleneckBlock_") for p in paths):
+        n_blocks = sum(p.startswith("BottleneckBlock_") for p in paths) // 6
+        return {"/".join(path): name for name, path, kind in _densenet3_pairs(n_blocks)
+                if kind != "bn"}
+    return {p: p for p in paths}  # ForestNet
+
+
+def _a_perm(name: str, params: Tree, cnn_fc1: bool) -> np.ndarray:
+    """``P`` with ``port A = jax A[P][:, P]`` for layer ``name``."""
+    w = params[f"{name}.weight"]
+    if w.dim() == 4:
+        _, ic, kh, kw = w.shape
+        perm = np.arange(kh * kw * ic).reshape(kh, kw, ic).transpose(2, 0, 1).ravel()
+    elif cnn_fc1:
+        c, h, ww = _CNNUSPS_FC1_CHW
+        perm = np.arange(h * ww * c).reshape(h, ww, c).transpose(2, 0, 1).ravel()
+    else:
+        perm = np.arange(w.shape[1])
+    if f"{name}.bias" in params:
+        perm = np.append(perm, len(perm))
+    return perm
+
+
+def _permuted(f, perm) -> Dict[str, np.ndarray]:
+    out = {k: np.asarray(f[k]) for k in _FACTOR_FIELDS}
+    out["m_aa"] = out["m_aa"][perm][:, perm]
+    out["Q_a"] = out["Q_a"][perm]
+    return out
+
+
+def kfac_factors_from_jax(factors, params: Tree) -> Dict[str, Tree]:
+    """The JAX package's ``{flax path: LayerFactors}`` -> the port's
+    ``{module name: {field: tensor}}``; ``params`` is the port's parameter
+    dict (it gives the kernel shapes and the bias)."""
+    names = _layer_names(factors)
+    cnn = "Conv_0" in names
+    out = {}
+    for path, f in factors.items():
+        name = names[path]
+        f = {k: getattr(f, k) if hasattr(f, k) else f[k] for k in _FACTOR_FIELDS}
+        perm = _a_perm(name, params, cnn and path == "Dense_0")
+        out[name] = {k: _t(v) for k, v in _permuted(f, perm).items()}
+    return out
+
+
+def kfac_factors_to_jax(factors: Dict[str, Tree], params: Tree, flax_paths):
+    """The port's factors -> ``{flax path: {field: numpy array}}`` (build
+    the JAX package's ``LayerFactors(**fields)`` from each);
+    ``flax_paths`` are the JAX model's factored layer paths."""
+    names = _layer_names(flax_paths)
+    cnn = "Conv_0" in names
+    out = {}
+    for path in flax_paths:
+        name = names[path]
+        inv = np.argsort(_a_perm(name, params, cnn and path == "Dense_0"))
+        out[path] = _permuted({k: _a(v) for k, v in factors[name].items()}, inv)
+    return out

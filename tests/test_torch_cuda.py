@@ -147,3 +147,90 @@ def test_driver_run_forest_on_the_card(cuda, tmp_path):
     assert any(ln.startswith("Test Accuracy: ") for ln in lines)
     rho = np.loadtxt(tmp_path / "logs" / (tr.header2 + "_rho_test.csv"), delimiter=",")
     assert rho.shape == (4, 6) and np.isfinite(rho).all()
+
+
+def _f64(tree, dev):
+    return {k: t.to(dev, torch.float64) if t.is_floating_point() else t.to(dev)
+            for k, t in tree.items()}
+
+
+def test_kfac_factors_and_natural_gradient_on_the_card(cuda):
+    """Capture, factors, ``eigh`` and the natural gradient of CNNUSPS in
+    float64: the card against the CPU (the ``eigh``s differ in signs and
+    bases, so the factors and the natural gradient are compared, not Q)."""
+    from optwboundeigenval_tpu_torch.models.cnn_usps import CNNUSPS
+    from optwboundeigenval_tpu_torch.ops import kfac
+
+    task = Task(model=CNNUSPS())
+    p, _ = task.init(torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(1)
+    batch = {"x": torch.from_numpy(rng.normal(size=(32, 16, 16, 1))),
+             "y": torch.from_numpy(rng.integers(0, 10, size=32)),
+             "w": torch.ones(32)}
+    batch["w"][-5:] = 0.0
+    out = {}
+    for dev in ("cpu", "cuda"):
+        pd, bd = _f64(p, dev), {k: t.to(dev) for k, t in batch.items()}
+        f = kfac.fit_factors(task, pd, {}, bd, sample_targets=False)
+        g = curvature.grad(task.loss_fn({}), pd, bd)
+        out[dev] = (f, kfac.precond_apply(f, g, 1e-3))
+    (fc, nc), (fg, ng) = out["cpu"], out["cuda"]
+    for layer, f in fc.items():
+        for k in ("m_aa", "m_gg"):
+            assert torch.allclose(fg[layer][k].cpu(), f[k], rtol=1e-10, atol=1e-14)
+    rel = float(tree_norm(tree_sub(_f64(ng, "cpu"), nc)) / tree_norm(nc))
+    assert rel < 1e-9
+
+
+@pytest.mark.parametrize("opt", ["kfac", "sam", "entropy_sgd"])
+def test_comparator_steps_on_the_card(cuda, opt):
+    """Two steps of each comparator optimizer on ForestNet on the card,
+    float64, against the same steps on the CPU (Entropy-SGD's noise comes
+    from the trainer's host generator, the same on both)."""
+    from optwboundeigenval_tpu_torch.configs._families import _make_optimizer
+    from optwboundeigenval_tpu_torch.models.mlp_forest import ForestNet
+
+    rng = np.random.default_rng(2)
+    batch = {"x": rng.normal(size=(32, 54)).astype(np.float32),
+             "y": rng.integers(0, 7, size=32).astype(np.int32), "w": np.ones(32, np.float32)}
+    params = {}
+    for dev in ("cpu", "cuda"):
+        tr = SpectralTrainer(Task(model=ForestNet()), _make_optimizer(opt, lr=0.5), mu=0.0,
+                             K=0.0, pow_iter=False, device=dev)
+        tr.init_state()
+        tr.params = _f64(tr.params, dev)
+        tr.opt_state = tr.optimizer.init(tr.params)
+        if tr.optimizer.build_extra_state is not None:
+            tr.opt_state = tr.optimizer.build_extra_state(tr.opt_state, tr.task, tr.params, {})
+        for _ in range(2):
+            assert tr.train_step(batch)["step_ok"]
+        assert all(t.device.type == dev for t in tr.params.values())
+        params[dev] = _f64(tr.params, "cpu")
+    rel = float(tree_norm(tree_sub(params["cuda"], params["cpu"])) / tree_norm(params["cpu"]))
+    assert rel < 1e-9
+
+
+def test_lobpcg_and_asymmetric_valley_runs_on_the_card(cuda, tmp_path):
+    """``forest_lobpcg`` for one epoch and ``forest_asymmetric_valley``
+    for 3 (SWA from 2, the hunt from 3) through ``driver.run`` on 4 train
+    batches: finite logs, the preconditioner on the card."""
+    from optwboundeigenval_tpu_torch.configs import forest_asymmetric_valley, forest_lobpcg
+    from optwboundeigenval_tpu_torch.train import driver
+
+    for mod, kw in ((forest_lobpcg, dict(max_iter=1)),
+                    (forest_asymmetric_valley, dict(max_iter=3, swa_start=2, sgd_start=3,
+                                                    save_freq=1, eval_freq=1, distances=1,
+                                                    division_part=2,
+                                                    plot_dir=str(tmp_path / "plots")))):
+        opts = mod.options(log_dir=str(tmp_path / "logs"), model_dir=str(tmp_path / "models"),
+                           **kw)
+        for k, n in (("inputs", 512), ("target", 512), ("inputs_valid", 256),
+                     ("target_valid", 256), ("inputs_test", 256), ("target_test", 256)):
+            opts[k] = opts[k][:n]
+        tr = driver.run(opts)
+        assert tr.device.type == "cuda" and all(p.is_cuda for p in tr.params.values())
+        rows = [ln.split() for ln in open(tr.log_file).read().splitlines()[1:]
+                if ln[:1].isdigit()]
+        assert len(rows) == kw["max_iter"] and np.isfinite(np.asarray(rows, float)).all()
+        if tr.lobpcg:
+            assert all(t.is_cuda for f in tr._precond_state.values() for t in f.values())

@@ -401,8 +401,8 @@ def test_trainer_takes_every_jax_keyword():
 
 
 @pytest.mark.parametrize("bad", [
-    dict(kfac_rand=False), dict(kfac_ema=True),
-    dict(kfac_batch=8), dict(profile_epoch=1), dict(test_func="auc"),
+    dict(scan_steps=4), dict(donate=True),
+    dict(mem_track=True), dict(profile_epoch=1), dict(test_func="auc"),
     dict(test_func="sigmoidacc")])
 def test_unported_trainer_options_raise(bad):
     with pytest.raises(NotImplementedError):
@@ -423,7 +423,7 @@ def test_config_options_reach_the_trainer():
 @pytest.mark.parametrize("key,value,match", [
     ("no_such_option", 1, "not known"), ("classes", [0, 1], "not known"),
     ("device_data", True, "device_data"), ("saliency", True, "saliency"),
-    ("asymmetric_valley", True, "asymmetric_valley")])
+    ("comp_test", True, "comp_test")])
 def test_unknown_or_unported_config_keys_raise(key, value, match):
     opts = forest_best.options(device="cpu", **{key: value})
     with pytest.raises(NotImplementedError, match=match):
@@ -431,8 +431,10 @@ def test_unknown_or_unported_config_keys_raise(key, value, match):
 
 
 def test_unported_config_choices_raise():
-    with pytest.raises(NotImplementedError, match="sam"):
-        forest_best.options(device="cpu", optimizer="sam")
+    with pytest.raises(ValueError, match="unknown optimizer"):
+        forest_best.options(device="cpu", optimizer="lbfgs")
+    with pytest.raises(NotImplementedError, match="dropout"):
+        driver.build_trainer(forest_best.options(device="cpu", has_dropout=True))
 
 
 def test_main_needs_the_card_unless_told():

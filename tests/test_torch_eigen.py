@@ -99,11 +99,20 @@ def test_power_iteration_matches_jax_counter_on_stop():
 
 
 def test_preconditioner_and_other_methods_are_not_ported():
-    """The preconditioned (LOBPCG) power iteration is not ported; Lanczos
-    rejects a preconditioner and an unknown method raises, as in JAX."""
-    _, _, tmv, tv0 = _operator(6, 2.0, 1.0, 0)
-    with pytest.raises(NotImplementedError):
-        teig.estimate_dominant_eig(tmv, tv0, precond=lambda r: r)
+    """The preconditioned (LOBPCG) power iteration matches JAX's and
+    refuses momentum; Lanczos rejects a preconditioner and an unknown
+    method raises, as in JAX."""
+    jmv, jv0, tmv, tv0 = _operator(16, 5.0, 2.0, 0)
+    scale = lambda r: {k: 0.5 * x for k, x in r.items()}
+    want = jeig.estimate_dominant_eig(jmv, jv0, precond=scale, alpha=0.7, eps=1e-6)
+    got = teig.estimate_dominant_eig(tmv, tv0, precond=scale, alpha=0.7, eps=1e-6)
+    assert got.iters == int(want.iters) and got.converged == bool(want.converged)
+    np.testing.assert_allclose(float(got.rho), float(want.rho), rtol=RTOL)
+    for k in ("a", "b"):
+        np.testing.assert_allclose(got.v[k].numpy(), np.asarray(want.v[k]), rtol=RTOL,
+                                   atol=1e-14)
+    with pytest.raises(ValueError, match="preconditioner"):
+        teig.estimate_dominant_eig(tmv, tv0, precond=scale, momentum=0.9)
     for method in ("lanczos", "lanczos_adaptive"):
         with pytest.raises(ValueError, match="preconditioner"):
             teig.estimate_dominant_eig(tmv, tv0, method=method, precond=lambda r: r)

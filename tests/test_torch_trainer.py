@@ -130,12 +130,16 @@ def test_entry_points_need_the_card_unless_told():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             SpectralTrainer(task, topt.sgd(0.1))
-    for bad in (dict(lobpcg=True), dict(scan_steps=4), dict(donate=True),
+    for bad in (dict(scan_steps=4), dict(donate=True),
                 dict(mem_track=True), dict(profile_dir="p"), dict(mesh=object())):
         with pytest.raises(NotImplementedError):
             SpectralTrainer(task, topt.sgd(0.1), device="cpu", **bad)
+    # lobpcg is ported: it builds, and refuses what it does not compose with
+    assert SpectralTrainer(task, topt.sgd(0.1), device="cpu", lobpcg=True).lobpcg
     for bad in (dict(eigensolver="arnoldi"),
-                dict(eigensolver="lanczos", pow_iter_momentum=0.9)):
+                dict(eigensolver="lanczos", pow_iter_momentum=0.9),
+                dict(eigensolver="lanczos", lobpcg=True),
+                dict(pow_iter_momentum=0.9, lobpcg=True)):
         with pytest.raises(ValueError):
             SpectralTrainer(task, topt.sgd(0.1), device="cpu", **bad)
 
