@@ -49,7 +49,9 @@ Phases (any failure exits non-zero and prints no result line):
     the time limit only, the train loader keeping its augmentation), then
     the same epoch with ``remat=False``: s/epoch, steps/s, mean
     ``pow_iters``, host ms of augmentation per batch and peak device
-    memory of each; a float64 ``train_step`` from one state with remat on
+    memory of each; the memory of one step's curvature passes with remat
+    on and off (remat's HVP map must hold less between products, and its
+    eigensolve peak lower); a float64 ``train_step`` from one state with remat on
     and off on the card and with remat on the CPU, which must agree; and 2
     steps with ``hvp_micro=2`` under remat, K1 launching ``hvp_micro *
     (pow_iters + 2)`` times a step;
@@ -76,10 +78,28 @@ Phases (any failure exits non-zero and prints no result line):
     noise given; and one DenseNet-40 LOBPCG step with ``hvp_micro=2``,
     K-FAC over its 40 conv and dense layers, K1 launching ``2 * (pow_iters
     + 2)`` times;
-13. a ``{"kernels": [...]}`` line (K1's launches summed over phases 4, 7,
-    8, 10, 11 and 12, each counted from 0 just before its run), the card's
-    name and power limit, and last the ``{"ok": true, "device": ...}``
-    line.
+13. the chest x-ray workload at the published 224 px, on
+    ``make_multilabel`` stand-ins (NIH 14 classes; CheXpert and MIMIC 13,
+    10% NaN labels): ``chestxray_mu0_01_K0`` (``CXRModel(densenet121)``,
+    batch 4) through ``driver.run`` with no other override but
+    ``max_iter=1`` and the loaders (32 train rows, 16 valid, 16 per test
+    set), ``comp_test`` over the three test sets on their shared classes,
+    then the same epoch with ``remat=False``: s/epoch, steps/s, mean
+    ``pow_iters``, a profiled step, the peak device memory and the
+    per-dataset AUC; the memory of one step's curvature passes with remat
+    on and off (remat's HVP map must hold less between products and its
+    eigensolve peak lower, as in phase 10); 2 steps of
+    ``chestxray_best_reg`` (``auto`` resolving to the early-exit Lanczos
+    solver); one K-FAC refresh on ``CXRModel`` (``chestxray_best_lobpcg``)
+    timed by part, the transit conv's 9,217-wide ``eigh`` alone; one step
+    with ``hvp_micro=2``, K1 launching ``2 * (pow_iters + 2)`` times; 2
+    full-width steps each of ``chestxray_mu0_vgg`` (VGG16-BN) and
+    ``cifar100_resnet_mu0`` (ResNet50, 32 px); and a float64 step of
+    ``CXRModel(densenet121)`` at 64 px, batch 2, on the card vs the CPU;
+14. a ``{"kernels": [...]}`` line (K1's launches summed over phases 4, 7,
+    8, 10, 11, 12 and 13, each counted from 0 just before its run), the
+    card's name and power limit, and last the ``{"ok": true, "device":
+    ...}`` line.
 
 Weights are random (seed 1226); the data are the real sets when they are
 under ``./data``, else their synthetic stand-ins.
@@ -486,11 +506,14 @@ def phase_profile(trainer, batch, label="densenet40 hvp_micro=2", step=None):
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # device activity only: the host's op events would double what the
+    # profiler has to gather on a step of 10^5 kernels, and are not read
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         m = trainer.train_step(batch) if step is None else step()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
+    t1 = time.perf_counter()
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kernels)
     if busy_us == 0:
@@ -502,7 +525,8 @@ def phase_profile(trainer, batch, label="densenet40 hvp_micro=2", step=None):
         f"device busy {busy_us / 1e3:.1f} ms ({100 * busy_us / wall_us:.1f}%), "
         f"idle {100 * (1 - busy_us / wall_us):.1f}%, K1 {k1_us / 1e3:.2f} ms "
         f"({100 * k1_us / busy_us:.2f}% of busy), "
-        f"{sum(e.count for e in kernels)} kernel launches")
+        f"{sum(e.count for e in kernels)} kernel launches; the profile took "
+        f"{time.perf_counter() - t1:.1f} s to read")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
         log(f"  {e.self_device_time_total / 1e3:9.2f} ms {e.count:6d}x  {e.key[:90]}")
     return busy_us / wall_us
@@ -774,6 +798,77 @@ def _rel(a, b):
     return math.sqrt(num / den) if den else math.sqrt(num)
 
 
+class _Memory:
+    """Bytes allocated on ``device`` around a call: the caching allocator's
+    counters on the card; on the CPU (a rehearsal), the allocations and
+    frees that ``torch.profiler`` records, summed in time order."""
+
+    def __init__(self, device):
+        self.cuda = torch.device(device).type == "cuda"
+
+    def __call__(self, fn):
+        """``(fn(), peak, after)``: the peak during the call and what stays
+        allocated after it, both above what was allocated before."""
+        if self.cuda:
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            out = fn()
+            torch.cuda.synchronize()
+            return (out, torch.cuda.max_memory_allocated() - base,
+                    torch.cuda.memory_allocated() - base)
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU], profile_memory=True) as prof:
+            out = fn()
+        cur = peak = 0
+        for e in sorted(prof.events(), key=lambda e: e.time_range.start):
+            cur += e.cpu_memory_usage if e.name == "[memory]" else e.self_cpu_memory_usage
+            peak = max(peak, cur)
+        return out, peak, cur
+
+
+def remat_memory(label, build, batch, device="cuda"):
+    """Memory of one step's curvature passes with ``remat`` on and off,
+    from one state: what the HVP map holds between products, the peak of
+    one product above that, the peak over the map's set-up and the
+    eigensolve, the peak of the vGHv pass and of a whole ``train_step``.
+    Fails unless the remat map holds less between products and its
+    eigensolve peaks lower (``jax.linearize(grad(jax.checkpoint(loss)))``
+    keeps only its inputs).  The vGHv pass holds the most in both
+    settings, so it sets the step's peak in both."""
+    from optwboundeigenval_tpu_torch.ops import curvature
+
+    mem, out = _Memory(device), {}
+    for remat in (True, False):
+        tr = build(remat)
+        tr.init_state()
+        b = tr.put_batch(batch)
+        loss = tr._loss_fn(tr.model_state)
+        v = tr._start(tr.v)
+        (grads, hvp_fn), set_up, after = mem(lambda: tr._linearize(loss, tr.params, b))
+        held = after - sum(t.numel() * t.element_size() for t in grads.values())
+        _, product, _ = mem(lambda: hvp_fn(v))
+        eig, solve, _ = mem(lambda: tr._eig(hvp_fn, v))
+        eig_peak = max(set_up, after + solve)
+        del hvp_fn, grads
+        _, vghv_peak, _ = mem(lambda: curvature.vghv(loss, tr.params, b, eig.v))
+        m, step_peak, _ = mem(lambda: tr.train_step(batch))
+        out[remat] = (held, eig_peak, vghv_peak, step_peak)
+        log(f"{label} memory on {device}, remat {remat}: the HVP map holds {held} B between "
+            f"products, one product peaks {product} B above that; set-up and eigensolve "
+            f"peak {eig_peak} B; vGHv pass {vghv_peak} B; train_step {step_peak} B "
+            f"(pow_iters {m['pow_iters']})")
+        del tr, eig
+    (h1, e1, _, _), (h0, e0, _, _) = out[True], out[False]
+    log(f"{label} memory: remat holds {h1} B against {h0} B between HVPs, eigensolve peak "
+        f"{e1} B against {e0} B ({e1 / e0:.3f}x)")
+    if not (h1 < h0 and e1 < e0):
+        fail(f"{label}: remat does not bound the eigensolve's memory ({h1} vs {h0} B held, "
+             f"{e1} vs {e0} B peak)")
+    return out
+
+
 def phase_recipe(device="cuda", rows=256):
     """Phase 10: the published DenseNet-40 recipe through ``driver.run``,
     with remat and without; a float64 step with remat on and off; and 2
@@ -813,6 +908,10 @@ def phase_recipe(device="cuda", rows=256):
                 fail(f"{label}: remat {trainer.remat}, augmented {hook.calls} batches")
             if cuda:
                 phase_profile(trainer, batch, f"cifar10_densenet_mu0_01_K0 {label}")
+    if cuda:
+        remat_memory("cifar10_densenet_mu0_01_K0", lambda remat: build_trainer(
+            cfg.options(device=device, remat=remat, augment=False)),
+            next(iter(cfg.options(device="cpu", augment=False)["train_loader_na"])))
 
     # float64 from one state: remat on and off on the card, remat on the CPU
     batch = next(iter(cfg.options(device="cpu")["train_loader_na"]))
@@ -1276,6 +1375,283 @@ def phase_comparators(device="cuda"):
     return launches
 
 
+CXR_PX = 224  # the published input width of the chest x-ray recipes
+CXR_ROWS = (32, 16, 16)  # train, valid and each test set: 8 steps at batch 4
+
+
+def cxr_loaders(rows=CXR_ROWS, px=CXR_PX, batch=4):
+    """The chest x-ray stand-ins at ``px`` from ``make_multilabel``, as
+    loader overrides: NIH train, valid and test (14 classes), and the
+    CheXpert and MIMIC test sets (13 classes, 10% NaN labels), each with
+    the ``class_to_idx`` and ``name`` that ``comp_test`` reads."""
+    from optwboundeigenval_tpu_torch.data import chestxray as cxr
+    from optwboundeigenval_tpu_torch.data.loaders import ArrayLoader
+    from optwboundeigenval_tpu_torch.data.synthetic import make_multilabel
+
+    def make(classes, n, data_seed, nan_frac, name, **kw):
+        x, y = make_multilabel(n, shape=(px, px, 3), n_classes=len(classes), seed=data_seed,
+                               nan_frac=nan_frac)
+        ld = ArrayLoader(x, y, batch, **kw)
+        ld.class_to_idx, ld.name = classes, name
+        return ld
+
+    n_train, n_valid, n_test = rows
+    return dict(
+        train_loader=make(cxr.NIH_CLASSES, n_train, 11, 0.0, "NIH", shuffle=True, seed=1226),
+        valid_loader=make(cxr.NIH_CLASSES, n_valid, 12, 0.0, "NIH"),
+        test_loader=[make(cxr.NIH_CLASSES, n_test, 13, 0.0, "NIH"),
+                     make(cxr.CHEXPERT_CLASSES, n_test, 22, 0.1, "CheXpert"),
+                     make(cxr.MIMIC_CLASSES, n_test, 32, 0.1, "MIMIC")])
+
+
+def _steps(label, trainer, loader, n, device):
+    """``n`` ``train_step``s over ``loader``; each must be finite.  Returns
+    the last step's metrics and the step times in ms."""
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    batches, times, m = iter(loader), [], None
+    for i in range(n):
+        batch = next(batches)
+        sync()
+        t0 = time.perf_counter()
+        m = trainer.train_step(batch)
+        sync()
+        times.append(1e3 * (time.perf_counter() - t0))
+        log(f"{label} step {i}: rho {m['rho']:.6g} pow_iters {m['pow_iters']} g {m['g']:.6g} "
+            f"gradf_norm {m['gradf_norm']:.6g} gradg_norm {m['gradg_norm']:.6g} "
+            f"step_ms {times[-1]:.1f}")
+        if not (m["step_ok"] and all(math.isfinite(m[k]) for k in ("rho", "g", "gradf_norm"))):
+            fail(f"{label} step {i}: {m}")
+    return m, times
+
+
+def cxr_main_runs(device="cuda", rows=CXR_ROWS, px=CXR_PX):
+    """``chestxray_mu0_01_K0`` (``CXRModel(densenet121)``, batch 4, the
+    recipe's ``remat``) for one epoch through ``driver.run`` with no other
+    override but ``max_iter=1`` and the loaders, ``comp_test`` over the
+    three test sets; then the same epoch with ``remat=False``.  Prints
+    each run's s/epoch, steps/s, mean ``pow_iters``, the busy share of a
+    profiled step, the peak device memory and the per-dataset AUC;
+    then :func:`remat_memory` of one step.  Returns K1's launches (none:
+    no micro-batching)."""
+    from optwboundeigenval_tpu_torch.configs import chestxray_mu0_01_K0 as cfg
+    from optwboundeigenval_tpu_torch.train.driver import build_trainer
+
+    cuda = device == "cuda"
+    launches, peaks = 0, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, (label, overrides) in enumerate((("chestxray_mu0_01_K0", {}),
+                                                ("chestxray_mu0_01_K0 remat=False",
+                                                 {"remat": False}))):
+            opts = cfg.options(max_iter=1, device=device, log_dir=f"{tmp}/{i}/logs",
+                               model_dir=f"{tmp}/{i}/models", **overrides,
+                               **cxr_loaders(rows, px))
+            if (opts["remat"] != (not overrides) or opts["test"] or not opts["comp_test"]
+                    or opts["batch_size"] != 4 or opts["model"].backbone != "densenet121"):
+                fail(f"{label}: the recipe lost remat, comp_test, batch 4 or its trunk")
+            if cuda:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+            trainer, batch, n = run_epochs(label, opts, device, 1)
+            launches += n
+            peaks[label] = torch.cuda.max_memory_allocated() if cuda else None
+            with open(trainer.log_file) as fh:
+                lines = fh.read().splitlines()
+            auc = {ln.split()[2]: float(ln.split(":")[1]) for ln in lines
+                   if ln.startswith("Comp Test") and ln.split(":")[0].endswith("Accuracy")}
+            shared = [ln for ln in lines if ln.startswith("['")]
+            log(f"{label}: {trainer.ndim} parameters ({trainer.task.model.backbone} trunk "
+                f"{sum(p.numel() for p in trainer.task.model.features.parameters())}, transit "
+                f"conv {trainer.params['head.transit_conv.weight'].numel() + 1024}), remat "
+                f"{trainer.remat}, pow_iters per step {trainer.epoch_pow_iters}, "
+                f"max_memory_allocated {peaks[label]} B, comp_test AUC {auc}, shared "
+                f"classes {shared}")
+            if sorted(auc) != ["CheXpert", "MIMIC", "NIH"] or len(shared) != 1:
+                fail(f"{label}: comp_test did not run over the three sets with their overlap")
+            if not all(math.isfinite(a) for a in auc.values()):
+                fail(f"{label}: a comp_test AUC is not finite")
+            if cuda:
+                phase_profile(trainer, batch, label)
+    if cuda:
+        on, off = peaks["chestxray_mu0_01_K0"], peaks["chestxray_mu0_01_K0 remat=False"]
+        log(f"chestxray peak memory of the epoch: remat {on} B, no remat {off} B "
+            f"({on / off:.3f}x)")
+        remat_memory("chestxray_mu0_01_K0", lambda remat: build_trainer(
+            cfg.options(device=device, remat=remat)), next(iter(opts["train_loader"])))
+    return launches
+
+
+def cxr_best_reg(device="cuda", px=CXR_PX):
+    """2 steps of ``chestxray_best_reg``: ``eigensolver='auto'`` must resolve
+    to the early-exit Lanczos solver under ``rand_init``."""
+    from optwboundeigenval_tpu_torch.configs import chestxray_best_reg
+    from optwboundeigenval_tpu_torch.train.driver import build_trainer
+
+    opts = chestxray_best_reg.options(device=device, **cxr_loaders((8, 4, 4), px))
+    tr = build_trainer(opts)
+    log(f"chestxray_best_reg: eigensolver {tr.eigensolver} (lanczos_m {tr.lanczos_m}), "
+        f"rand_init {tr.rand_init}, gradg_clip {tr.gradg_clip}, remat {tr.remat}")
+    if tr.eigensolver != "lanczos_adaptive" or not tr.rand_init:
+        fail(f"chestxray_best_reg: 'auto' resolved to {tr.eigensolver}")
+    _steps("chestxray_best_reg", tr, opts["train_loader"], 2, device)
+
+
+def cxr_kfac(device="cuda", px=CXR_PX, reps=1, host_max=2048):
+    """One K-FAC refresh on ``CXRModel(densenet121)`` (``chestxray_best_lobpcg``)
+    timed whole and by part: the capture, the ``eigh``s on the card (the
+    transit conv's 9,217-wide ``A`` alone too) and the preconditioner
+    apply; the ``eigh``s of the factors up to ``host_max`` wide on the
+    host."""
+    from optwboundeigenval_tpu_torch.configs import chestxray_best_lobpcg
+    from optwboundeigenval_tpu_torch.ops import kfac
+    from optwboundeigenval_tpu_torch.train.driver import build_trainer
+
+    opts = chestxray_best_lobpcg.options(device=device, **cxr_loaders((8, 4, 4), px))
+    tr = build_trainer(opts)
+    tr.init_state()
+    task, p, s = tr.task, tr.params, tr.model_state
+    b = tr.put_batch(next(iter(opts["train_loader"])))
+    f = kfac.fit_factors(task, p, s, b, sample_targets=False)
+    width = lambda v: max(v["m_aa"].shape[0], v["m_gg"].shape[0])
+    transit = f["head.transit_conv"]
+    rng = np.random.default_rng(1226)
+    r = {k: torch.from_numpy(rng.normal(size=tuple(t.shape))).to(device, t.dtype)
+         for k, t in p.items()}
+    timer = cuda_time_ms if device == "cuda" else host_ms
+    refresh = timer(lambda: kfac.fit_factors(task, p, s, b, sample_targets=False), reps, 1)
+    capture = timer(lambda: kfac.capture(task, p, s, b), reps, 1)
+    eigh = timer(lambda: kfac.compute_inverses(f), reps, 1)
+    eigh_transit = timer(lambda: kfac.compute_inverses({"t": transit}), reps, 1)
+    apply = timer(lambda: kfac.precond_apply(f, r), 5)
+    small = {n: {k: t.cpu() for k, t in v.items()} for n, v in f.items() if width(v) <= host_max}
+    eigh_host = host_ms(lambda: kfac.compute_inverses(small), 1, 0)
+    log(f"kfac CXRModel(densenet121) b4 {px} px: {len(f)} factored layers, transit conv A "
+        f"{tuple(transit['m_aa'].shape)} G {tuple(transit['m_gg'].shape)}; refresh "
+        f"{refresh:.1f} ms (capture {capture:.1f} ms, eighs {eigh:.1f} ms on {device}, of "
+        f"which the transit conv's {eigh_transit:.1f} ms), preconditioner apply "
+        f"{apply:.2f} ms; eighs of the {len(small)} factors up to {host_max} wide on the "
+        f"host {eigh_host:.1f} ms")
+    if transit["m_aa"].shape[0] != 1024 * 9 + 1 or len(f) != len(kfac.factored_layers(
+            task.model)):
+        fail("kfac CXRModel: the transit conv's factor or the layer count is wrong")
+    if not all(bool(torch.isfinite(t).all()) for v in f.values() for t in v.values()):
+        fail("kfac CXRModel: a factor is not finite")
+    return dict(refresh_ms=refresh, capture_ms=capture, eigh_ms=eigh,
+                eigh_transit_ms=eigh_transit, apply_ms=apply, eigh_host_ms=eigh_host)
+
+
+def host_ms(fn, reps, warmup=1):
+    """Mean host time of ``fn()`` over ``reps`` calls (perf_counter)."""
+    for _ in range(warmup):
+        fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def cxr_k1_step(device="cuda", px=CXR_PX):
+    """One ``chestxray_mu0_01_K0`` step with ``hvp_micro=2``: K1 must launch
+    ``2 * (pow_iters + 2)`` times over the 16.4 M-parameter tree.  Returns
+    K1's launches."""
+    from optwboundeigenval_tpu_torch.configs import chestxray_mu0_01_K0 as cfg
+    from optwboundeigenval_tpu_torch.ops import pallas_kernels as pk
+    from optwboundeigenval_tpu_torch.train.driver import build_trainer
+
+    opts = cfg.options(hvp_micro=2, device=device, **cxr_loaders((4, 4, 4), px))
+    tr = build_trainer(opts)
+    tr.init_state()
+    pk.axpy_accumulate.launches = 0
+    m, _ = _steps("chestxray hvp_micro=2", tr, opts["train_loader"], 1, device)
+    launches = pk.axpy_accumulate.launches
+    # one accumulate per micro-batch: the gradient, each HVP, and the vGHv
+    # pass where the penalty is on
+    want = tr.hvp_micro * (m["pow_iters"] + 1 + (m["g"] > 0))
+    log(f"chestxray hvp_micro=2: {tr.ndim} parameters in {len(tr.params)} leaves, K1 "
+        f"launches {launches} (expected {want})")
+    if device == "cuda" and launches != want:
+        fail(f"chestxray hvp_micro=2: {launches} K1 launches, expected {want}")
+    return launches
+
+
+def cxr_other_trunks(device="cuda", px=CXR_PX):
+    """2 full-width steps each of ``chestxray_mu0_vgg`` (VGG16-BN, 224 px,
+    batch 4) and ``cifar100_resnet_mu0`` (the ResNet50 ``CXRModel`` with 100
+    outputs, 32 px, the first 64 CIFAR-100 rows at batch 32)."""
+    from optwboundeigenval_tpu_torch.configs import chestxray_mu0_vgg, cifar100_resnet_mu0
+    from optwboundeigenval_tpu_torch.data.loaders import ArrayLoader
+    from optwboundeigenval_tpu_torch.train.driver import build_trainer
+
+    opts = chestxray_mu0_vgg.options(device=device, **cxr_loaders((8, 4, 4), px))
+    tr = build_trainer(opts)
+    log(f"chestxray_mu0_vgg: {tr.task.model.backbone}, {sum(t.numel() for t in tr.task.model.parameters())} "
+        f"parameters, batch {tr.batch_size}")
+    _steps("chestxray_mu0_vgg", tr, opts["train_loader"], 2, device)
+    opts = cifar100_resnet_mu0.options(device=device, augment=False)
+    ld = opts["train_loader"]
+    tr = build_trainer(opts)
+    log(f"cifar100_resnet_mu0: {tr.task.model.backbone}, "
+        f"{sum(t.numel() for t in tr.task.model.parameters())} parameters, batch {tr.batch_size}")
+    _steps("cifar100_resnet_mu0", tr, ArrayLoader(ld.x[:64], ld.y[:64], tr.batch_size), 2,
+           device)
+
+
+def cxr_card_vs_cpu(device="cuda", px=64, rows=2):
+    """One float64 ``train_step`` of ``chestxray_mu0_01_K0``
+    (``CXRModel(densenet121)``, remat) at ``px`` px and batch ``rows`` from
+    one state, on the card and with the port on the CPU, within
+    ``CARD_F64_RTOL``: the step's metrics, the BatchNorm statistics and
+    the step's direction (Adam's first moment).  Not the parameter
+    update: Adam's first step divides each coordinate by its own size, so
+    the transit conv's bias, whose gradient ahead of BatchNorm is zero,
+    moves by +-lr on rounding alone.  And not 32 px: the last dense
+    block is then 1 x 1, its BatchNorm sees 2 values per channel, and
+    ``rho`` is ~1e19 and ill-conditioned (reversing the batch's rows moves
+    it on the CPU alone)."""
+    from optwboundeigenval_tpu_torch.configs import chestxray_mu0_01_K0 as cfg
+    from optwboundeigenval_tpu_torch.data.synthetic import make_multilabel
+    from optwboundeigenval_tpu_torch.train.driver import build_trainer
+
+    x, y = make_multilabel(rows, shape=(px, px, 3), n_classes=14, seed=1226)
+    batch = {"x": x, "y": y, "w": np.ones(rows, np.float32)}
+    steps = {}
+    for dev in (device, "cpu"):
+        tr = _as_f64(build_trainer(cfg.options(device=dev, batch_size=rows)))
+        t0 = time.perf_counter()
+        m = tr.train_step(batch)
+        steps[dev] = (m, tr.opt_state["mu"], tr.model_state)
+        log(f"float64 chestxray step at {px} px, batch {rows}, {dev}: rho {m['rho']:.15g} "
+            f"pow_iters {m['pow_iters']} g {m['g']:.15g} gradf_norm {m['gradf_norm']:.15g} "
+            f"gradg_norm {m['gradg_norm']:.15g}, {time.perf_counter() - t0:.2f} s")
+    (mc, dc, sc), (mh, dh, sh) = steps[device], steps["cpu"]
+    errs = {k: abs(mc[k] - mh[k]) / abs(mh[k]) for k in ("rho", "g", "gradf_norm", "gradg_norm")}
+    errs["direction"], errs["bn_stats"] = _rel(dc, dh), _rel(sc, sh)
+    log("float64 chestxray step, card vs cpu: relative errors "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()) + f" (bound {CARD_F64_RTOL:g})")
+    if mc["pow_iters"] != mh["pow_iters"] or not max(errs.values()) < CARD_F64_RTOL:
+        fail("float64 chestxray step: the card and the CPU disagree")
+    return errs
+
+
+def phase_cxr(device="cuda", rows=CXR_ROWS, px=CXR_PX):
+    """Phase 13: the chest x-ray workload at the published width.  Returns
+    K1's launches."""
+    t0 = time.perf_counter()
+    lap = lambda what: log(f"phase 13: {what} done, {time.perf_counter() - t0:.1f} s in")
+    launches = cxr_main_runs(device, rows, px)
+    lap("chestxray_mu0_01_K0 with and without remat")
+    cxr_best_reg(device, px)
+    lap("chestxray_best_reg")
+    cxr_kfac(device, px)
+    lap("kfac on CXRModel")
+    launches += cxr_k1_step(device, px)
+    lap("K1 at CXR scale")
+    cxr_other_trunks(device, px)
+    lap("VGG16-BN and ResNet50")
+    cxr_card_vs_cpu(device)
+    lap("float64 card vs cpu")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs an NVIDIA GPU")
@@ -1309,6 +1685,8 @@ def main():
     done("phase 11")
     launches += phase_comparators()
     done("phase 12")
+    launches += phase_cxr()
+    done("phase 13")
     kernels = [{**entry, "launches": launches}]
     log(json.dumps({"kernels": kernels}))
     log(smi)

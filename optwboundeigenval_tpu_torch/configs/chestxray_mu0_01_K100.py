@@ -1,0 +1,10 @@
+"""Chest x-ray DenseNet121 recipe (reference params/chestxray_mu0_01_K100.py).
+
+``options(**overrides)`` takes ``key=value`` overrides as ``main`` does.
+"""
+
+from optwboundeigenval_tpu_torch.configs._cxr_family import chestxray_config
+
+
+def options(**overrides):
+    return chestxray_config(**{"mu": 0.01, "K": 100.0, **overrides})

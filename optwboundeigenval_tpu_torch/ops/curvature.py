@@ -7,16 +7,20 @@ dict of tensors.  Every product is plain autograd over the loss:
 
 * ``grad`` = one reverse pass;
 * ``hvp`` = reverse over reverse, ``autograd.grad(g, p, v)`` with ``g``
-  taken with ``create_graph=True``;
+  taken with ``create_graph=True``; nothing is kept after it returns;
 * ``linearize_hvp`` = the gradient's graph kept, one reverse pass per HVP;
+  ``recompute_hvp`` = nothing kept, each HVP a whole ``hvp`` (the
+  ``remat`` option: ``jax.linearize(grad(jax.checkpoint(loss)))`` keeps
+  only its inputs and recomputes forward and gradient per product);
 * ``vghv`` = ``autograd.grad(<hv, v>, p)`` with ``hv`` taken with
   ``create_graph=True``.
 
-Plain autograd, not ``torch.func``: ``torch.func`` transforms refuse the
-saved-tensor hooks of ``torch.utils.checkpoint``, which :func:`checkpointed`
-(the ``remat`` option) puts around the loss, and on an H100 the autograd
-forms were as fast or faster than ``torch.func``'s ``jvp(grad)`` and
-``grad(<jvp(grad), v>)`` on every model of the package (PERF.md, section 6).
+Plain autograd, not ``torch.func``: on an H100 the autograd forms were as
+fast or faster than ``torch.func``'s ``jvp(grad)`` and
+``grad(<jvp(grad), v>)`` on every model of the package (PERF.md, section
+6).  No ``torch.utils.checkpoint`` either: a product's later reverse
+passes keep what a checkpoint recomputes in the earlier ones, so it
+lowers no peak here and only adds a forward.
 
 The ``*_microbatched`` variants split the batch into contiguous slices
 ``[i*mb, (i+1)*mb)`` (BatchNorm statistics are per slice, as in the JAX
@@ -31,26 +35,11 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from optwboundeigenval_tpu_torch.ops.pallas_kernels import axpy_accumulate
 
 Tree = Dict[str, torch.Tensor]
 LossFn = Callable[[Tree, Any], torch.Tensor]
-
-
-def checkpointed(loss_fn: LossFn) -> LossFn:
-    """``loss_fn`` under ``torch.utils.checkpoint`` (non-reentrant): its
-    forward activations are recomputed in each backward pass instead of
-    kept (the JAX package's ``jax.checkpoint`` of the loss).  The RNG
-    state is not saved: the losses draw no random numbers (dropout is
-    not ported)."""
-
-    def f(params: Tree, batch) -> torch.Tensor:
-        return checkpoint(loss_fn, params, batch, use_reentrant=False,
-                          preserve_rng_state=False)
-
-    return f
 
 
 def _leaves(params: Tree) -> Tree:
@@ -72,21 +61,23 @@ def grad(loss_fn: LossFn, params: Tree, batch) -> Tree:
     return value_and_grad(loss_fn, params, batch)[1]
 
 
-def _hv_graph(loss_fn: LossFn, params: Tree, batch, v: Tree):
-    """``(leaves, hv)`` with ``hv = H v`` by reverse over reverse, its
-    graph kept for one more pass."""
+def _hv(loss_fn: LossFn, params: Tree, batch, v: Tree, create_graph: bool):
+    """``(leaves, hv)`` with ``hv = H v`` by reverse over reverse; under
+    ``create_graph`` its graph is kept for one more pass."""
     leaves = _leaves(params)
     inputs = list(leaves.values())
     with torch.enable_grad():
         g = torch.autograd.grad(loss_fn(leaves, batch), inputs, create_graph=True)
-        hv = torch.autograd.grad(g, inputs, [v[k] for k in leaves], create_graph=True)
+        hv = torch.autograd.grad(g, inputs, [v[k] for k in leaves],
+                                 create_graph=create_graph)
     return leaves, hv
 
 
 def hvp(loss_fn: LossFn, params: Tree, batch, v: Tree) -> Tree:
-    """``H(params) @ v`` (reference ``HVPOperator.Hv``, opt.py:77-108)."""
-    leaves, hv = _hv_graph(loss_fn, params, batch, v)
-    return {k: t.detach() for k, t in zip(leaves, hv)}
+    """``H(params) @ v`` (reference ``HVPOperator.Hv``, opt.py:77-108); the
+    second pass builds no graph, so nothing outlives the call."""
+    leaves, hv = _hv(loss_fn, params, batch, v, create_graph=False)
+    return dict(zip(leaves, hv))
 
 
 def linearize_hvp(loss_fn: LossFn, params: Tree, batch
@@ -112,11 +103,21 @@ def linearize_hvp(loss_fn: LossFn, params: Tree, batch
     return {k: t.detach() for k, t in zip(leaves, g)}, hvp_fn
 
 
+def recompute_hvp(loss_fn: LossFn, params: Tree, batch
+                  ) -> Tuple[Tree, Callable[[Tree], Tree]]:
+    """``(grad, hvp_fn)`` for one batch with no graph kept between calls:
+    the ``remat`` counterpart of :func:`linearize_hvp`.  ``hvp_fn`` holds
+    only ``params`` and ``batch``, and each call is one whole
+    :func:`hvp`, a forward and a gradient recomputed per product, as
+    ``jax.linearize(grad(jax.checkpoint(loss)))`` recomputes them."""
+    return grad(loss_fn, params, batch), lambda v: hvp(loss_fn, params, batch, v)
+
+
 def vghv(loss_fn: LossFn, params: Tree, batch, v: Tree) -> Tree:
     """``v^T (grad H) v``: the gradient of ``<H(p) v, v>`` with respect
     to ``p``, a third reverse pass over the HVP's graph (reference
     ``HVPOperator.vGHv``, opt.py:110-152)."""
-    leaves, hv = _hv_graph(loss_fn, params, batch, v)
+    leaves, hv = _hv(loss_fn, params, batch, v, create_graph=True)
     with torch.enable_grad():
         rayleigh_num = torch.stack([torch.dot(h.reshape(-1), v[k].reshape(-1))
                                     for k, h in zip(leaves, hv)]).sum()

@@ -6,16 +6,20 @@ python-module-as-config pattern (opt.py:1990-1994).  ``build_trainer``
 passes that dict into the trainer constructor by reflection
 (``missing_params``/``arg_dic``, opt.py:1940-1965, with ``tol`` read as
 ``eps``), and ``run`` executes the cascade train -> test -> parse ->
-aug_test -> rho_test off the option flags (opt.py:2018-2102).
+aug_test -> comp_test -> rho_test off the option flags (opt.py:2018-2102;
+``comp_test`` is ``analysis/comp.py``, the chest x-ray recipes' cross-
+dataset evaluation over the classes shared with ``model_class_to_idx``).
+``pretrained_npz`` overlays converted ImageNet weights on the fresh
+parameters before training (``models/backbones.load_pretrained_npz``,
+scoped by ``pretrained_prefix``, default ``"features"``).
 
 ``asymmetric_valley=True`` builds ``AsymmetricValleyTrainer`` with its
 own keywords (``swa_start``, ``sgd_start``, ...) beside the trainer's
 (JAX driver.py:56-69).  An option that is neither a trainer argument,
 an Asymmetric Valley argument nor one the driver reads raises, so a
 setting the port does not implement is never dropped without a word.
-The JAX driver's ``device_data``, ``pretrained_npz``, ``comp_test``,
-``saliency``, ``jaccard`` and ``jaccard_comp`` are not ported and raise
-when set.
+The JAX driver's ``device_data``, ``saliency``, ``jaccard`` and
+``jaccard_comp`` are not ported and raise when set.
 """
 
 from __future__ import annotations
@@ -26,7 +30,9 @@ from typing import Any, Dict
 
 import numpy as np
 
+from optwboundeigenval_tpu_torch.analysis.comp import comp_test
 from optwboundeigenval_tpu_torch.data.loaders import ArrayLoader
+from optwboundeigenval_tpu_torch.models.backbones import load_pretrained_npz
 from optwboundeigenval_tpu_torch.train.asymmetric_valley import AsymmetricValleyTrainer
 from optwboundeigenval_tpu_torch.train.task import Task, losses
 from optwboundeigenval_tpu_torch.train.trainer import SpectralTrainer
@@ -38,14 +44,17 @@ _DRIVER_KEYS = {
     "scheduler", "inputs", "target", "inputs_valid", "target_valid",
     "inputs_test", "target_test", "train_loader", "valid_loader",
     "train_loader_na", "test_loader", "test_loader_aug", "train", "test",
-    "fname", "aug_test", "rho_test", "crops", "asymmetric_valley",
+    "fname", "aug_test", "rho_test", "crops", "asymmetric_valley", "comp_test",
+    "pretrained_npz", "pretrained_prefix", "model_class_to_idx",
+    # the test cascade's class subsetting (test_model's keywords)
+    "classes", "model_classes", "other_classes",
     # data facts the Forest loader returns beside its arrays
     "scaler_mean", "scaler_scale",
 }
+_TEST_KEYS = ("classes", "model_classes", "other_classes")
 # the JAX driver's options whose code is not ported yet; inert when unset,
 # None or False
-_UNPORTED = ("device_data", "pretrained_npz", "comp_test", "saliency",
-             "jaccard", "jaccard_comp")
+_UNPORTED = ("device_data", "saliency", "jaccard", "jaccard_comp")
 
 
 def arg_dic(fn, options: Dict[str, Any], replace=None) -> Dict[str, Any]:
@@ -125,6 +134,12 @@ def run(options: Dict[str, Any]) -> SpectralTrainer:
     train_loader_na = options.get("train_loader_na")
     crops = options.get("crops", False)
 
+    if options.get("pretrained_npz"):
+        trainer.init_state()
+        trainer.params, trainer.model_state = load_pretrained_npz(
+            trainer.task.model, trainer.params, trainer.model_state,
+            options["pretrained_npz"], prefix=options.get("pretrained_prefix", "features"))
+
     if options.get("train", True):
         trainer.train(train_loader=train_loader, valid_loader=valid_loader,
                       train_loader_na=train_loader_na, crops=crops)
@@ -132,8 +147,9 @@ def run(options: Dict[str, Any]) -> SpectralTrainer:
         trainer.model_load(options.get("fname"))
 
     if options.get("test", True) and test_loaders:
+        subset = {k: options[k] for k in _TEST_KEYS if k in options}
         for tl in test_loaders:
-            trainer.test_set(loader=tl, label="Test", crops=crops)
+            trainer.test_set(loader=tl, label="Test", crops=crops, **subset)
 
     trainer.parse()
 
@@ -141,6 +157,9 @@ def run(options: Dict[str, Any]) -> SpectralTrainer:
         tla = options["test_loader_aug"]
         for tl in tla if isinstance(tla, list) else [tla]:
             trainer.test_set(loader=tl, label="Aug Test", crops=crops)
+
+    if options.get("comp_test", False) and test_loaders:
+        comp_test(trainer, test_loaders, options)
 
     if options.get("rho_test", False):
         trainer.rho_test(loader=train_loader_na if train_loader_na is not None

@@ -6,15 +6,16 @@ A step (``_step_body``, reference ``iter()`` body, opt.py:580-763):
 1. gradient of the task loss and an HVP map: the cached linearization
    (``curvature.linearize_hvp``), or micro-batched passes through the
    CUDA accumulate kernel when ``hvp_micro > 1``; under ``remat`` the
-   loss is checkpointed (``curvature.checkpointed``) and every product
-   takes its plain-autograd form;
+   map keeps no graph, each HVP recomputing forward and gradient
+   (``curvature.recompute_hvp``);
 2. ``rho`` by the ``eigensolver`` (damped power iteration, or Lanczos at
    a fixed or early-exit depth), warm-started from the carried
    eigenvector, or from the uniform vector under ``rand_init``; under
    ``lobpcg`` the power iteration's residual goes through the K-FAC
    inverse (``ops/kfac.py``), whose factors are refitted every
    ``kfac_batch`` batches at the pre-step parameters (``_refresh_precond``);
-3. the penalty ``g`` and, when ``g > 0``, ``grad g`` from the vGHv pass;
+3. the penalty ``g`` and, when ``g > 0``, ``grad g`` from the vGHv pass,
+   with the HVP map and its graph dropped first;
 4. ``p = grad f + mu * grad g`` and the optimizer step, with the JAX
    package's protocol (``grad_fn``, ``rng``, ``stats_fn``, ``err_fn``;
    ``optim/api.py``) for SAM, Entropy-SGD and K-FAC;
@@ -76,8 +77,6 @@ _UNPORTED = {
     "scan_steps": 1, "mesh": None, "donate": False, "mem_track": False,
     "profile_dir": None, "profile_epoch": 0,
 }
-# test_func words whose evaluation (sigmoid outputs, AUC) is not ported yet
-_UNPORTED_TEST_FUNC = ("auc", "sigmoid", "logit")
 
 CKPT = "_trained_model.pt"
 CKPT_BEST = "_trained_model_best.pt"
@@ -132,6 +131,21 @@ def f1_micro(y_true: np.ndarray, y_pred: np.ndarray) -> float:
     return float(2 * tp / denom) if denom else 0.0
 
 
+def roc_auc(y_true: np.ndarray, score: np.ndarray) -> float:
+    """sklearn's ``roc_auc_score`` for binary labels, as the Mann-Whitney
+    statistic over average ranks (a tie counts one half); NaN where
+    ``y_true`` holds one class only (sklearn raises there, and the JAX
+    package records NaN)."""
+    pos = y_true == 1
+    n_pos = int(pos.sum())
+    n_neg = len(y_true) - n_pos
+    if n_pos == 0 or n_neg == 0:
+        return float("nan")
+    _, inv, counts = np.unique(score, return_inverse=True, return_counts=True)
+    ranks = (np.cumsum(counts) - (counts - 1) / 2.0)[inv]
+    return float((ranks[pos].sum() - n_pos * (n_pos + 1) / 2.0) / (n_pos * n_neg))
+
+
 def confusion_matrix(y_true: np.ndarray, y_pred: np.ndarray) -> np.ndarray:
     """sklearn's ``confusion_matrix``: rows are true labels, columns
     predicted ones, over the sorted labels that occur in either."""
@@ -147,8 +161,7 @@ class SpectralTrainer:
     is a scalar or a callable of the epoch index; ``pow_iter_alpha`` a
     scalar or a callable of the power-iteration index.  The options of
     ``_UNPORTED`` raise ``NotImplementedError`` when set to anything but
-    their inert value, as does a ``test_func`` asking for sigmoid outputs
-    or AUC."""
+    their inert value."""
 
     def __init__(
         self,
@@ -203,9 +216,6 @@ class SpectralTrainer:
             if given[name] != inert:
                 raise NotImplementedError(
                     f"SpectralTrainer({name}={given[name]!r}) is not ported")
-        if any(t in test_func for t in _UNPORTED_TEST_FUNC):
-            raise NotImplementedError(
-                f"SpectralTrainer(test_func={test_func!r}) is not ported")
         self.device = resolve_device(device)
         self.task = task
         self.optimizer = optimizer
@@ -244,8 +254,7 @@ class SpectralTrainer:
         self.kfac_batch = kfac_batch
         self._precond_state = None
         self._kfac_iter = kfac_batch
-        # remat: the loss under torch.utils.checkpoint, its activations
-        # recomputed in each backward pass (curvature.checkpointed)
+        # remat: an HVP map that keeps no graph between products (_linearize)
         self.remat = remat
         self.gradg_clip = gradg_clip
         self.best_h_val = best_h
@@ -327,8 +336,16 @@ class SpectralTrainer:
     # one step
     # ------------------------------------------------------------------
     def _loss_fn(self, model_state):
-        loss_fn = self.task.loss_fn(model_state)
-        return curvature.checkpointed(loss_fn) if self.remat else loss_fn
+        return self.task.loss_fn(model_state)
+
+    def _linearize(self, loss_fn, params, batch):
+        """``(grad f, hvp_fn)`` on the full batch: the kept gradient graph,
+        or under ``remat`` a map that holds only ``params`` and ``batch``
+        and recomputes forward and gradient per HVP, as
+        ``jax.linearize(grad(jax.checkpoint(loss)))`` does."""
+        if self.remat:
+            return curvature.recompute_hvp(loss_fn, params, batch)
+        return curvature.linearize_hvp(loss_fn, params, batch)
 
     def _step_body(self, params, model_state, opt_state, v, batch, mu,
                    precond_state=None):
@@ -336,17 +353,20 @@ class SpectralTrainer:
         v, metrics)`` with the metrics as device tensors."""
         loss_fn = self._loss_fn(model_state)
         if self.hvp_micro > 1:
-            # memory-bounded path: O(B / micro) activations per pass
+            # memory-bounded path: O(B / micro) activations per pass, and
+            # nothing kept between passes
             grads_f = curvature.grad_microbatched(loss_fn, params, batch,
                                                   self.hvp_micro)
             hvp_fn = lambda u: curvature.hvp_microbatched(
                 loss_fn, params, batch, u, self.hvp_micro)
         else:
-            grads_f, hvp_fn = curvature.linearize_hvp(loss_fn, params, batch)
+            grads_f, hvp_fn = self._linearize(loss_fn, params, batch)
 
         gradf_norm = tree_norm(grads_f)
-        if self.pow_iter:
-            eig = self._eig(hvp_fn, self._start(v), precond_state)
+        eig = self._eig(hvp_fn, self._start(v), precond_state) if self.pow_iter else None
+        # the vGHv pass builds its own graph: the linearized one goes first
+        del hvp_fn
+        if eig is not None:
             sg = spectral.penalty_and_grad(
                 loss_fn, params, batch, eig.v, eig.rho, K=self.K,
                 Kmin=self.Kmin, gradg_clip=self.gradg_clip,
@@ -497,8 +517,7 @@ class SpectralTrainer:
         then the BN running statistics advance, as the reference's
         train-mode forward does (opt.py:421, 882-910).  Returns ``(eig,
         new_model_state)``."""
-        _, hvp_fn = curvature.linearize_hvp(self._loss_fn(self.model_state),
-                                            self.params, batch)
+        _, hvp_fn = self._linearize(self._loss_fn(self.model_state), self.params, batch)
         eig = self._eig(hvp_fn, self._start(self.v), self._precond_state)
         return eig, self._advance_stats(self.params, self.model_state, batch)
 
@@ -683,41 +702,82 @@ class SpectralTrainer:
     # ------------------------------------------------------------------
     def test_model(self, x=None, y=None, loader=None, classes=None,
                    model_classes=None, other_classes=None, crops: bool = False):
-        """``(loss, accuracy %, micro-F1)`` over ``loader``, each the mean
-        of per-batch values weighted by the batch's real rows; with
-        ``'conf'`` in ``test_func`` the confusion matrix goes to
-        ``<header2>_conf_matrix.csv`` and accuracy and F1 are None."""
-        for name, val in (("classes", classes), ("model_classes", model_classes),
-                          ("other_classes", other_classes), ("crops", crops)):
-            if val:
-                raise NotImplementedError(f"test_model({name}=...) is not ported")
+        """``(loss, accuracy, F1)`` over ``loader`` (JAX trainer lines
+        1243-1372), the loss the mean of per-batch losses weighted by the
+        batch's real rows.
+
+        ``test_func`` picks the rest: ``'sigmoid'``/``'logit'`` put the
+        outputs through a sigmoid after the loss; ``'max'`` predicts the
+        arg max, else the outputs over 0.5; ``'acc'`` is the accuracy %.
+        With ``'auc'`` the accuracy slot holds the ``nanmean`` over
+        classes of the per-class ROC AUC (NaN labels masked, NaN for a
+        class with one label value) and the F1 slot the mean per-class
+        micro-F1; with ``'conf'`` the confusion matrix goes to
+        ``<header2>_conf_matrix.csv`` and both are None; otherwise both
+        are per-batch means weighted like the loss.
+
+        ``classes`` keeps those target columns and ``model_classes`` (or
+        ``classes``) those output columns, before the loss;
+        ``other_classes`` keeps, in the AUC, the rows whose NaN-skipping
+        count of positives outside ``classes`` is one of them.  A 5-D
+        batch under ``crops`` is ``(B, crops, H, W, C)``, and the outputs
+        are the mean over its crops."""
         if loader is None:
             loader = _as_loader((x, y), self.batch_size)
-        conf = "conf" in self.test_func
+        if isinstance(other_classes, int):
+            other_classes = [other_classes]
+        tf = self.test_func
         f_list, acc_list, f1_list, sizes = [], [], [], []
-        predicted_all, labels_all = [], []
+        outputs_all, labels_all, oc = [], [], []
         for data in loader:
             nreal = int(np.sum(np.asarray(data["w"]) > 0))
-            ops = self.task.predict(self.params, self.model_state,
-                                    self.put_batch(data)).cpu().numpy()[:nreal]
+            batch = self.put_batch(data)
+            xb = batch["x"]
+            if crops and xb.dim() == 5:
+                flat = {**batch, "x": xb.reshape((-1,) + tuple(xb.shape[2:]))}
+                out = self.task.predict(self.params, self.model_state, flat)
+                out = out.reshape(xb.shape[0], xb.shape[1], -1).mean(dim=1)
+            else:
+                out = self.task.predict(self.params, self.model_state, batch)
+            ops = out.cpu().numpy()[:nreal]
             target = np.asarray(data["y"])[:nreal]
             sizes.append(nreal)
+            if other_classes is not None and classes is not None:
+                rest = [i for i in range(target.shape[1]) if i not in classes]
+                oc.extend(np.nansum(target[:, rest], axis=1))
+            # class subsetting before the loss (reference comp_f, opt.py:558-563)
+            if classes is not None and target.ndim > 1:
+                target = target[:, classes]
+                ops = ops[:, model_classes if model_classes is not None else classes]
             f_list.append(float(self.task.loss(torch.from_numpy(ops),
                                                torch.from_numpy(target), None)))
-            if "max" in self.test_func:
-                predicted = np.argmax(ops, axis=1)
-            else:
-                predicted = (ops > 0.5).astype(np.float32)
-            if "acc" in self.test_func:
+            if "sigmoid" in tf or "logit" in tf:
+                ops = 1.0 / (1.0 + np.exp(-ops))
+            predicted = (np.argmax(ops, axis=1) if "max" in tf
+                         else (ops > 0.5).astype(np.float32))
+            if "acc" in tf:
                 acc_list.append(float(np.mean(predicted == target)) * 100)
-            if conf:
-                predicted_all.append(predicted)
+            if "auc" in tf or "conf" in tf:
+                outputs_all.append(ops if "auc" in tf else predicted)
                 labels_all.append(target)
             else:
                 f1_list.append(f1_micro(target, predicted))
-        if conf:
-            cm = confusion_matrix(np.concatenate(labels_all),
-                                  np.concatenate(predicted_all))
+        if "auc" in tf:
+            labels, outputs = np.concatenate(labels_all), np.concatenate(outputs_all)
+            keep = (None if other_classes is None
+                    else np.asarray([o in other_classes for o in oc], bool))
+            roc, f1s = [], []
+            for i in range(outputs.shape[1]):
+                o2, l2 = outputs[:, i], labels[:, i]
+                if keep is not None:
+                    o2, l2 = o2[keep], l2[keep]
+                good = l2 == l2  # NaN-label masking (opt.py:1015-1017)
+                o2, l2 = o2[good], l2[good]
+                roc.append(roc_auc(l2, o2))
+                f1s.append(f1_micro(l2, (o2 > 0.5).astype(np.float32)))
+            test_acc, test_f1 = float(np.nanmean(roc)), float(np.mean(f1s))
+        elif "conf" in tf:
+            cm = confusion_matrix(np.concatenate(labels_all), np.concatenate(outputs_all))
             os.makedirs(self.log_dir, exist_ok=True)
             np.savetxt(os.path.join(self.log_dir, self.header2 + "_conf_matrix.csv"),
                        cm, delimiter=",")
@@ -789,8 +849,8 @@ class SpectralTrainer:
         for j, data in enumerate(loader):
             batch = self.put_batch(data)
             t0 = time.perf_counter()
-            _, hvp_fn = curvature.linearize_hvp(self._loss_fn(self.model_state),
-                                                self.params, batch)
+            _, hvp_fn = self._linearize(self._loss_fn(self.model_state),
+                                        self.params, batch)
             eig = self._eig(hvp_fn, tree_uniform_like(self.params))
             rho, norm, res = torch.stack(
                 [eig.rho, eig.norm, eig.res_change]).to(torch.float64).tolist()
@@ -823,8 +883,8 @@ class SpectralTrainer:
         m_lz = int(lanczos_m) or max(4 * k, 16)
         rows = []
         for j, data in enumerate(loader):
-            _, hvp_fn = curvature.linearize_hvp(self._loss_fn(self.model_state),
-                                                self.params, self.put_batch(data))
+            _, hvp_fn = self._linearize(self._loss_fn(self.model_state),
+                                        self.params, self.put_batch(data))
             u = tree_uniform_like(self.params)
             start = None if starts is None else starts[j]
             if method == "lanczos":

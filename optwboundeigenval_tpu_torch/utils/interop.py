@@ -26,14 +26,25 @@ CNNUSPS's ``fc1`` takes the HWC -> CHW column permutation of its weight;
 the bias row and column stay last, and ``G`` is the same on both sides.
 A permutation ``P`` acts as ``m_aa[P][:, P]`` and ``Q_a[P]``, so the
 round trip is exact.
+
+The chest x-ray models (``models/backbones.py``, ``models/cxr.py``) keep
+torchvision's names; :func:`model_pairs` walks a model in the order its
+flax counterpart creates its layers and assigns flax's auto-names
+(``Conv_0``, ``BatchNorm_3``, ``_Bottleneck_5``, ``DenseNetFeatures_0``)
+with one counter per class and scope, as ``scripts/convert_torch_weights.py``
+does.  :func:`from_jax`/:func:`to_jax` carry any of the port's models
+across through that map, and the K-FAC factor functions take it for the
+chest x-ray models' layer names (``features/Conv_0`` is
+``features.conv0``, ``head/transit_conv`` is ``head.transit_conv``).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, Tuple
+from typing import Dict, Iterator, List, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 Tree = Dict[str, torch.Tensor]
 
@@ -78,47 +89,173 @@ def _set(tree, path, value):
     tree[path[-1]] = value
 
 
+def _pairs_from_jax(pairs, params, batch_stats) -> Tuple[Tree, Tree]:
+    """flax ``(params, batch_stats)`` -> the port's ``(params,
+    model_state)`` over ``(port prefix, flax path, kind)`` pairs."""
+    p, s = {}, {}
+    for name, path, kind in pairs:
+        src = _get(params, path)
+        if kind == "bn":
+            stats = _get(batch_stats, path)
+            p[f"{name}.weight"] = _t(src["scale"])
+            s[f"{name}.running_mean"] = _t(stats["mean"])
+            s[f"{name}.running_var"] = _t(stats["var"])
+        elif kind == "conv":
+            p[f"{name}.weight"] = _t(np.asarray(src["kernel"]).transpose(3, 2, 0, 1))
+        else:
+            p[f"{name}.weight"] = _t(np.asarray(src["kernel"]).T)
+        if "bias" in src:
+            p[f"{name}.bias"] = _t(src["bias"])
+    return p, s
+
+
+def _pairs_to_jax(pairs, params: Tree, model_state: Tree):
+    """The port's ``(params, model_state)`` -> flax ``(params,
+    batch_stats)`` as nested dicts of numpy arrays."""
+    fp, fs = {}, {}
+    for name, path, kind in pairs:
+        w = _a(params[f"{name}.weight"])
+        if kind == "bn":
+            leaf = {"scale": w}
+            _set(fs, path, {"mean": _a(model_state[f"{name}.running_mean"]),
+                            "var": _a(model_state[f"{name}.running_var"])})
+        elif kind == "conv":
+            leaf = {"kernel": np.ascontiguousarray(w.transpose(2, 3, 1, 0))}
+        else:
+            leaf = {"kernel": np.ascontiguousarray(w.T)}
+        if f"{name}.bias" in params:
+            leaf["bias"] = _a(params[f"{name}.bias"])
+        _set(fp, path, leaf)
+    return fp, fs
+
+
 def densenet3_from_jax(params, batch_stats) -> Tuple[Tree, Tree]:
     """flax ``(params, batch_stats)`` of ``models.DenseNet3`` (numpy or
     array leaves) -> the port's ``(params, model_state)`` as CPU tensors
     of the same dtype."""
     n_blocks = sum(k.startswith("BottleneckBlock_") for k in params) // 3
-    p, s = {}, {}
-    for name, path, kind in _densenet3_pairs(n_blocks):
-        src = _get(params, path)
-        if kind == "conv":
-            p[f"{name}.weight"] = _t(np.asarray(src["kernel"]).transpose(3, 2, 0, 1))
-        elif kind == "dense":
-            p[f"{name}.weight"] = _t(np.asarray(src["kernel"]).T)
-            p[f"{name}.bias"] = _t(src["bias"])
-        else:
-            stats = _get(batch_stats, path)
-            p[f"{name}.weight"] = _t(src["scale"])
-            p[f"{name}.bias"] = _t(src["bias"])
-            s[f"{name}.running_mean"] = _t(stats["mean"])
-            s[f"{name}.running_var"] = _t(stats["var"])
-    return p, s
+    return _pairs_from_jax(_densenet3_pairs(n_blocks), params, batch_stats)
 
 
 def densenet3_to_jax(params: Tree, model_state: Tree):
     """The port's ``(params, model_state)`` -> flax ``(params,
     batch_stats)`` as nested dicts of numpy arrays."""
     n_blocks = sum(k.endswith(".conv2.weight") for k in params) // 3
-    fp, fs = {}, {}
-    for name, path, kind in _densenet3_pairs(n_blocks):
-        if kind == "conv":
-            _set(fp, path, {"kernel": np.ascontiguousarray(
-                _a(params[f"{name}.weight"]).transpose(2, 3, 1, 0))})
-        elif kind == "dense":
-            _set(fp, path, {"kernel": np.ascontiguousarray(
-                _a(params[f"{name}.weight"]).T),
-                "bias": _a(params[f"{name}.bias"])})
+    return _pairs_to_jax(_densenet3_pairs(n_blocks), params, model_state)
+
+
+class _Names:
+    """flax auto-names in creation order: one counter per class."""
+
+    def __init__(self, scope: Tuple[str, ...] = ()):
+        self.scope, self.counts = scope, {}
+
+    def __call__(self, cls: str) -> Tuple[str, ...]:
+        i = self.counts.get(cls, 0)
+        self.counts[cls] = i + 1
+        return self.scope + (f"{cls}_{i}",)
+
+
+def _trunk_pairs(trunk: nn.Module, prefix: str, scope: Tuple[str, ...]) -> List:
+    """``(port prefix, flax path, kind)`` of a ``models/backbones.py``
+    trunk, in the creation order of its flax module (JAX
+    backbones.py:24-182)."""
+    from optwboundeigenval_tpu_torch.models import backbones as bb
+
+    n, out = _Names(scope), []
+    conv = lambda name: out.append((f"{prefix}{name}", n("Conv"), "conv"))
+    bn = lambda name: out.append((f"{prefix}{name}", n("BatchNorm"), "bn"))
+    if isinstance(trunk, bb.AlexNetFeatures):
+        for idx, *_ in trunk._LAYERS:
+            conv(str(idx))
+    elif isinstance(trunk, bb.VGG16BNFeatures):
+        for idx in trunk._plan:
+            if idx is not None:
+                conv(str(idx))
+                bn(str(idx + 1))
+    elif isinstance(trunk, bb.ResNet50Features):
+        conv("conv1")
+        bn("bn1")
+        for i in range(len(trunk.stage_sizes)):
+            for b, block in enumerate(getattr(trunk, f"layer{i + 1}")):
+                sub = _Names(n("_Bottleneck"))
+                p = f"{prefix}layer{i + 1}.{b}."
+                for j in (1, 2, 3):
+                    out.append((f"{p}conv{j}", sub("Conv"), "conv"))
+                    out.append((f"{p}bn{j}", sub("BatchNorm"), "bn"))
+                if block.downsample is not None:
+                    out.append((f"{p}downsample.0", sub("Conv"), "conv"))
+                    out.append((f"{p}downsample.1", sub("BatchNorm"), "bn"))
+    elif isinstance(trunk, bb.DenseNetFeatures):
+        conv("conv0")
+        bn("norm0")
+        for i, layers in enumerate(trunk.block_config):
+            for j in range(layers):
+                p = f"denseblock{i + 1}.denselayer{j + 1}."
+                bn(p + "norm1")
+                conv(p + "conv1")
+                bn(p + "norm2")
+                conv(p + "conv2")
+            if i < len(trunk.block_config) - 1:
+                bn(f"transition{i + 1}.norm")
+                conv(f"transition{i + 1}.conv")
+        bn("norm5")
+    else:
+        raise TypeError(f"no flax layout for {type(trunk).__name__}")
+    return out
+
+
+def model_pairs(model: nn.Module) -> List:
+    """``(port prefix, flax path, kind)`` of every layer of ``model``: a
+    ``CXRModel`` (or any module with a trunk ``features`` and a
+    ``TransitHead`` ``head``), a ``DenseNet121Sigmoid``, a bare trunk, or
+    a ``DenseNet3``."""
+    from optwboundeigenval_tpu_torch.models.cxr import DenseNet121Sigmoid, TransitHead
+    from optwboundeigenval_tpu_torch.models.densenet import DenseNet3
+
+    if isinstance(model, DenseNet3):
+        return list(_densenet3_pairs(len(model.block1.layer)))
+    if isinstance(model, DenseNet121Sigmoid):
+        return (_trunk_pairs(model.features, "features.", ("DenseNetFeatures_0",))
+                + [("classifier", ("classifier",), "dense")])
+    if isinstance(getattr(model, "head", None), TransitHead):
+        return (_trunk_pairs(model.features, "features.", ("features",))
+                + [(f"head.{name}", ("head", name), kind) for name, kind in
+                   (("transit_conv", "conv"), ("transit_bn", "bn"),
+                    ("classifier", "dense"))])
+    return _trunk_pairs(model, "", ())
+
+
+def from_jax(model: nn.Module, params, batch_stats) -> Tuple[Tree, Tree]:
+    """The JAX package's flax ``(params, batch_stats)`` of ``model``'s
+    counterpart -> the port's ``(params, model_state)``, CPU tensors of
+    the same dtype."""
+    return _pairs_from_jax(model_pairs(model), params, batch_stats)
+
+
+def to_jax(model: nn.Module, params: Tree, model_state: Tree):
+    """The port's ``(params, model_state)`` of ``model`` -> flax ``(params,
+    batch_stats)`` as nested dicts of numpy arrays."""
+    return _pairs_to_jax(model_pairs(model), params, model_state)
+
+
+def flatten(tree, sep: str = "/") -> Dict[str, np.ndarray]:
+    """A nested dict -> ``{"a/b/c": leaf}`` (flax's ``flatten_dict``)."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update({f"{k}{sep}{kk}": vv for kk, vv in flatten(v, sep).items()})
         else:
-            _set(fp, path, {"scale": _a(params[f"{name}.weight"]),
-                            "bias": _a(params[f"{name}.bias"])})
-            _set(fs, path, {"mean": _a(model_state[f"{name}.running_mean"]),
-                            "var": _a(model_state[f"{name}.running_var"])})
-    return fp, fs
+            out[k] = v
+    return out
+
+
+def unflatten(flat: Dict[str, np.ndarray], sep: str = "/"):
+    """The inverse of :func:`flatten`."""
+    tree: dict = {}
+    for k, v in flat.items():
+        _set(tree, tuple(k.split(sep)), v)
+    return tree
 
 
 def forestnet_from_jax(params) -> Tree:
@@ -181,8 +318,12 @@ def cnnusps_to_jax(params: Tree):
 _FACTOR_FIELDS = ("m_aa", "m_gg", "Q_a", "d_a", "Q_g", "d_g")
 
 
-def _layer_names(flax_paths) -> Dict[str, str]:
-    """flax path -> port module name of every factored layer."""
+def _layer_names(flax_paths, model=None) -> Dict[str, str]:
+    """flax path -> port module name of every factored layer; ``model``
+    gives the map of the chest x-ray models."""
+    if model is not None:
+        return {"/".join(path): name for name, path, kind in model_pairs(model)
+                if kind != "bn"}
     paths = set(flax_paths)
     if "Conv_0" in paths:  # CNNUSPS
         names = dict(_CNNUSPS_CONVS)
@@ -218,11 +359,13 @@ def _permuted(f, perm) -> Dict[str, np.ndarray]:
     return out
 
 
-def kfac_factors_from_jax(factors, params: Tree) -> Dict[str, Tree]:
+def kfac_factors_from_jax(factors, params: Tree, model=None) -> Dict[str, Tree]:
     """The JAX package's ``{flax path: LayerFactors}`` -> the port's
     ``{module name: {field: tensor}}``; ``params`` is the port's parameter
-    dict (it gives the kernel shapes and the bias)."""
-    names = _layer_names(factors)
+    dict (it gives the kernel shapes and the bias), ``model`` the port's
+    model where the flax paths alone do not name the layers (the chest
+    x-ray models)."""
+    names = _layer_names(factors, model)
     cnn = "Conv_0" in names
     out = {}
     for path, f in factors.items():
@@ -233,11 +376,11 @@ def kfac_factors_from_jax(factors, params: Tree) -> Dict[str, Tree]:
     return out
 
 
-def kfac_factors_to_jax(factors: Dict[str, Tree], params: Tree, flax_paths):
+def kfac_factors_to_jax(factors: Dict[str, Tree], params: Tree, flax_paths, model=None):
     """The port's factors -> ``{flax path: {field: numpy array}}`` (build
     the JAX package's ``LayerFactors(**fields)`` from each);
     ``flax_paths`` are the JAX model's factored layer paths."""
-    names = _layer_names(flax_paths)
+    names = _layer_names(flax_paths, model)
     cnn = "Conv_0" in names
     out = {}
     for path in flax_paths:

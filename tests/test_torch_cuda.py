@@ -234,3 +234,34 @@ def test_lobpcg_and_asymmetric_valley_runs_on_the_card(cuda, tmp_path):
         assert len(rows) == kw["max_iter"] and np.isfinite(np.asarray(rows, float)).all()
         if tr.lobpcg:
             assert all(t.is_cuda for f in tr._precond_state.values() for t in f.values())
+
+
+def test_cxr_step_card_vs_cpu(cuda):
+    """One float64 ``train_step`` of ``chestxray_mu0_01_K0``
+    (``CXRModel(densenet121)``, remat, W-BCE over NaN labels) at 64 px,
+    batch 2, from one state on the card and on the CPU: the metrics and
+    the step's direction (Adam's first moment; its first update moves the
+    transit conv's bias, whose gradient ahead of BatchNorm is zero, by
+    +-lr on rounding)."""
+    from optwboundeigenval_tpu_torch.configs import chestxray_mu0_01_K0
+    from optwboundeigenval_tpu_torch.data.synthetic import make_multilabel
+    from optwboundeigenval_tpu_torch.train.driver import build_trainer
+
+    x, y = make_multilabel(2, shape=(64, 64, 3), n_classes=14, seed=5, nan_frac=0.1)
+    batch = {"x": x, "y": y, "w": np.ones(2, np.float32)}
+    out = {}
+    for dev in ("cpu", "cuda"):
+        tr = build_trainer(chestxray_mu0_01_K0.options(device=dev, batch_size=2))
+        tr.init_state()
+        tr.params, tr.model_state = _f64(tr.params, dev), _f64(tr.model_state, dev)
+        tr.opt_state = tr.optimizer.init(tr.params)
+        tr.v = {k: torch.ones_like(t) for k, t in tr.params.items()}
+        m = tr.train_step(batch)
+        assert m["step_ok"] and tr.remat and all(t.device.type == dev
+                                                 for t in tr.params.values())
+        out[dev] = (m, _f64(tr.opt_state["mu"], "cpu"))
+    (mc, dc), (mg, dg) = out["cpu"], out["cuda"]
+    assert mg["pow_iters"] == mc["pow_iters"]
+    for k in ("rho", "g", "gradf_norm", "gradg_norm"):
+        assert abs(mg[k] - mc[k]) <= 1e-9 * abs(mc[k]), k
+    assert float(tree_norm(tree_sub(dg, dc)) / tree_norm(dc)) < 1e-9

@@ -2,7 +2,12 @@
 ``optwboundeigenval_tpu_torch/`` and not ``chip_smoke.py`` may import
 ``jax``, ``flax``, ``optax`` or anything of ``optwboundeigenval_tpu``
 (whose ``__init__`` imports jax).  Checked statically, because this
-test process has jax loaded already."""
+test process has jax loaded already.
+
+The GPU machine has no pandas, sklearn, PIL or matplotlib either: pandas
+and sklearn are never imported, and PIL (the chest x-ray images) and
+matplotlib (the Asymmetric Valley's plots) only inside the function that
+needs them, never when a module is imported."""
 
 import ast
 from pathlib import Path
@@ -10,7 +15,8 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "optwboundeigenval_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "optwboundeigenval_tpu", "pandas", "sklearn")
+NOT_AT_IMPORT = ("PIL", "matplotlib")
 FILES = sorted((ROOT / "optwboundeigenval_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 
@@ -38,3 +44,36 @@ def test_no_jax_import(path):
     bad = [m for m in _imported(tree)
            if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def _module_level(tree):
+    """The modules imported by statements that run when the module is
+    imported: the body outside functions (class bodies and ``if``/``try``
+    blocks included)."""
+    todo = list(tree.body)
+    while todo:
+        node = todo.pop()
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)):
+            continue
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+        todo.extend(ast.iter_child_nodes(node))
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_host_only_import_at_module_level(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = [m for m in _module_level(tree) if m.split(".")[0] in NOT_AT_IMPORT]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad} when it is imported"
+
+
+@pytest.mark.parametrize("name", [
+    "analysis.comp", "data.chestxray", "models.backbones", "models.cxr",
+    "configs._cxr_family", "configs.chestxray_mu0_01_K0", "configs.cifar100_resnet_mu0"])
+def test_chest_x_ray_modules_import(name):
+    import importlib
+
+    mod = importlib.import_module(f"optwboundeigenval_tpu_torch.{name}")
+    assert mod.__file__ in {str(f) for f in FILES}

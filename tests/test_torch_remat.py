@@ -1,19 +1,28 @@
-"""``remat``: the loss under ``torch.utils.checkpoint``.
+"""``remat``: the HVP map that keeps no graph between products
+(``curvature.recompute_hvp``), the counterpart of the JAX package's
+``jax.linearize(grad(jax.checkpoint(loss)))``.
 
-``torch.func`` transforms refuse the checkpoint's saved-tensor hooks, so
-every curvature product is plain autograd.  At float64 on the CPU, on a
-small DenseNet3 (BatchNorm) and on CNNUSPS, each product with remat on
-(``curvature.checkpointed``) must equal
+At float64 on the CPU, on a small DenseNet3 (BatchNorm) and on CNNUSPS,
+each curvature product as the remat trainer takes it must equal
 
 * the same product with remat off to rtol 1e-12 (the recomputed forward
   is the same arithmetic; measured bit-equal);
 * the JAX package's product of its ``jax.checkpoint``-ed loss to rtol
   1e-10.
 
-And no ``torch.func`` transform is reached under remat, the checkpoint
-really recomputes the forward, and the trainer's remat steps equal the
-JAX trainer's (rtol 1e-10) and its own without remat (rtol 1e-12).
+And no ``torch.func`` transform is reached (every product is plain
+autograd), the remat map really recomputes the forward per product, and
+the trainer's remat steps equal the JAX trainer's (rtol 1e-10) and its
+own without remat (rtol 1e-12).
+
+The trainer's ``remat`` bounds memory as ``jax.linearize(grad(
+jax.checkpoint(loss)))`` does: no tensor that autograd saved outlives an
+HVP call of its map (counted with ``saved_tensors_hooks``), and under
+both settings the map, with its graph, is gone before the vGHv pass.
 """
+
+import gc
+import weakref
 
 import jax
 import jax.numpy as jnp
@@ -31,6 +40,7 @@ from optwboundeigenval_tpu.utils.tree import tree_uniform_like as jax_uniform
 from optwboundeigenval_tpu_torch.models.cnn_usps import CNNUSPS
 from optwboundeigenval_tpu_torch.models.densenet import DenseNet3
 from optwboundeigenval_tpu_torch.ops import curvature as tcurv
+from optwboundeigenval_tpu_torch.ops import spectral as tspectral
 from optwboundeigenval_tpu_torch.optim import api as topt
 from optwboundeigenval_tpu_torch.train.task import Task
 from optwboundeigenval_tpu_torch.train.trainer import SpectralTrainer
@@ -84,6 +94,11 @@ def _linearized(loss_fn, p, b, v):
     return {**{f"g:{k}": t for k, t in g.items()}, **hvp_fn(v)}
 
 
+def _recomputed(loss_fn, p, b, v):
+    g, hvp_fn = tcurv.recompute_hvp(loss_fn, p, b)
+    return {**{f"g:{k}": t for k, t in g.items()}, **hvp_fn(v)}
+
+
 def _jax_linearized(loss_fn, p, b, v):
     g, hvp_fn = jcurv.linearize_hvp(loss_fn, p, b)
     return g, hvp_fn(v)
@@ -104,6 +119,11 @@ FORMS = {
 }
 
 
+# the remat trainer's form of a product where it has its own: the
+# linearization; every other product keeps nothing after it returns
+REMAT = {"linearize_hvp": _recomputed}
+
+
 def _close(got, want, rtol):
     assert sorted(got) == sorted(want)
     for k, w in want.items():
@@ -117,7 +137,7 @@ def test_remat_equals_no_remat_and_jax(model, form):
     (jl, jp, jb, jv), (tl, tp, tb, tv), to_port = model
     tfn, jfn, takes_v = FORMS[form]
     targs, jargs = (tp, tb, tv) if takes_v else (tp, tb), (jp, jb, jv) if takes_v else (jp, jb)
-    on = tfn(tcurv.checkpointed(tl), *targs)
+    on = REMAT.get(form, tfn)(tl, *targs)
     off = tfn(tl, *targs)
     _close(on, off, 1e-12)
     want = jax.jit(lambda *a: jfn(jl, *a))(*jargs)
@@ -130,15 +150,17 @@ def test_remat_equals_no_remat_and_jax(model, form):
 
 
 def test_checkpoint_recomputes_the_forward(model):
-    """The checkpoint is real: each backward pass runs the forward again."""
+    """The remat map is real: each HVP runs the forward again, where the
+    linearized map runs it once for all its products."""
     _, (tl, tp, tb, tv), _ = model
     calls = []
     counted = lambda p, b: (calls.append(1), tl(p, b))[1]
-    tcurv.grad(tcurv.checkpointed(counted), tp, tb)
-    assert len(calls) == 2
-    calls.clear()
-    tcurv.grad(counted, tp, tb)
-    assert len(calls) == 1
+    for make, want in ((tcurv.recompute_hvp, 3), (tcurv.linearize_hvp, 1)):
+        calls.clear()
+        _, hvp_fn = make(counted, tp, tb)
+        hvp_fn(tv)
+        hvp_fn(tv)
+        assert len(calls) == want, make.__name__
 
 
 def _no_torch_func(monkeypatch):
@@ -156,9 +178,8 @@ def test_torch_func_is_never_reached_under_remat(model, monkeypatch):
     _no_torch_func(monkeypatch)
     with pytest.raises(AssertionError, match="torch.func"):
         torch.func.grad(tl)(tp, tb)  # the guard holds
-    loss = tcurv.checkpointed(tl)
     for form, (fn, _, takes_v) in FORMS.items():
-        fn(loss, tp, tb, *((tv,) if takes_v else ()))
+        REMAT.get(form, fn)(tl, tp, tb, *((tv,) if takes_v else ()))
 
 
 # ---- the trainer ---------------------------------------------------------
@@ -222,3 +243,97 @@ def test_remat_train_steps_match_jax_and_no_remat(hvp_micro, monkeypatch):
                                   jax.tree.map(np.asarray, jtr.model_state["batch_stats"]))
         _close(on.params, want[0], 1e-10)
         _close(on.model_state, want[1], 1e-10)
+
+
+# ---- what the remat map holds --------------------------------------------
+
+
+class _Box:
+    __slots__ = ("t", "__weakref__")
+
+    def __init__(self, t):
+        self.t = t
+
+
+class _Saved:
+    """Every tensor autograd saves under these hooks, boxed, and the boxes
+    still alive (a box dies with the graph that holds it).  A box holds a
+    detached alias: the saved output of an op, boxed with its
+    ``grad_fn``, would make a cycle the collector cannot see."""
+
+    def __init__(self):
+        self.live = weakref.WeakSet()
+        self.packed = 0
+
+    def pack(self, t):
+        box = _Box(t.detach())
+        self.live.add(box)
+        self.packed += 1
+        return box
+
+    @staticmethod
+    def unpack(box):
+        return box.t
+
+    def held(self) -> int:
+        gc.collect()
+        return len(self.live)
+
+
+def _port_trainer(remat):
+    tr = SpectralTrainer(Task(model=DenseNet3(depth=10, growth_rate=4), has_batch_stats=True),
+                         topt.sgd(0.1, momentum=0.9), remat=remat, device="cpu", **SOLVER)
+    tr.init_state()
+    tr.params = {k: t.double() for k, t in tr.params.items()}
+    tr.model_state = {k: t.double() for k, t in tr.model_state.items()}
+    tr.opt_state = tr.optimizer.init(tr.params)
+    tr.v = tree_uniform_like(tr.params)
+    return tr
+
+
+@pytest.mark.parametrize("remat", [True, False])
+def test_remat_map_keeps_no_saved_tensor_between_hvps(remat):
+    """Under ``remat`` the HVP map holds only ``params`` and the batch:
+    nothing autograd saved survives a call, and a second call gives the
+    same product.  Without it the linearized graph stays until the map
+    goes."""
+    tr = _port_trainer(remat)
+    batch = tr.put_batch(_batches(1)[0])
+    saved = _Saved()
+    with torch.autograd.graph.saved_tensors_hooks(saved.pack, saved.unpack):
+        _, hvp_fn = tr._linearize(tr._loss_fn(tr.model_state), tr.params, batch)
+        first = hvp_fn(tr.v)
+        held = saved.held()
+        second = hvp_fn(tr.v)
+    assert saved.packed > 0
+    assert (held == 0) if remat else (held > 0)
+    _close(second, first, 0.0)
+    del hvp_fn
+    assert saved.held() == 0
+
+
+@pytest.mark.parametrize("remat", [True, False])
+def test_hvp_map_is_released_before_the_vghv(remat, monkeypatch):
+    """In a step, the eigensolve's map and every tensor its graph saved
+    are gone when ``penalty_and_grad`` starts; the step still runs the
+    vGHv pass."""
+    tr = _port_trainer(remat)
+    saved, maps, seen = _Saved(), [], []
+    make = "recompute_hvp" if remat else "linearize_hvp"
+    real_make, real_penalty = getattr(tcurv, make), tspectral.penalty_and_grad
+
+    def tracked(*a, **k):
+        g, hvp_fn = real_make(*a, **k)
+        maps.append(weakref.ref(hvp_fn))
+        return g, hvp_fn
+
+    def penalty(*a, **k):
+        seen.append((maps[-1]() is None, saved.held()))
+        return real_penalty(*a, **k)
+
+    monkeypatch.setattr(tcurv, make, tracked)
+    monkeypatch.setattr(tspectral, "penalty_and_grad", penalty)
+    with torch.autograd.graph.saved_tensors_hooks(saved.pack, saved.unpack):
+        m = tr.train_step(_batches(1)[0])
+    assert m["g"] > 0 and m["gradg_norm"] > 0 and m["pow_iters"] > 1
+    assert seen == [(True, 0)]
