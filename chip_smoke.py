@@ -96,7 +96,28 @@ Phases (any failure exits non-zero and prints no result line):
     full-width steps each of ``chestxray_mu0_vgg`` (VGG16-BN) and
     ``cifar100_resnet_mu0`` (ResNet50, 32 px); and a float64 step of
     ``CXRModel(densenet121)`` at 64 px, batch 2, on the card vs the CPU;
-14. a ``{"kernels": [...]}`` line (K1's launches summed over phases 4, 7,
+14. the analysis path (no K1 on it: gradients to the input, GAN steps):
+    ``CXRModel(densenet121)`` at 224 px, batch 4, on 16 stand-in rows,
+    ``chestxray_mu0_01_K0`` against a ``chestxray_mu0`` baseline (another
+    seed): input-gradient, guided-backprop and Grad-CAM (the trunk's
+    output, ``features``) maps in ms a batch, ``jaccard_audit`` for each
+    method with the meta-classifier and ``jaccard_comp`` over three
+    trainers; the three maps in float64 on the card vs the CPU at 64 px,
+    batch 2; the MLP cGAN through the ``gan`` script at its published
+    defaults for 2 of the published 200 epochs (a cut for time only) with
+    10,000 generated images, the DC-cGAN (``--dc``, feat 64, 32x32) for 1
+    epoch, steps/s, a profiled run's busy share and the peak memory, and
+    two float64 steps of each on the card vs the CPU with the draws
+    (dropout masks included) injected; ``nearest_distances`` (Euclid and
+    cosine) of the 2,007 USPS test rows to the 10,000 generated images and
+    ``create_dist_dataset`` over the two augmented test sets (the
+    ``distance`` and ``create_dist`` scripts); ``forest_best``,
+    ``forest_unreg`` and ``mu=0.01 K=1`` for 1 epoch through
+    ``driver.run``, the ``cov_shift_test`` script's 100 shifts (draws/s)
+    and its slope comparison, and the float64 sweep on the card vs the
+    CPU; ``usps_cnn_mu0_01_K0`` for 1 epoch through ``driver.run`` with
+    ``saliency`` and ``jaccard`` against a first run's checkpoint;
+15. a ``{"kernels": [...]}`` line (K1's launches summed over phases 4, 7,
     8, 10, 11, 12 and 13, each counted from 0 just before its run), the
     card's name and power limit, and last the ``{"ok": true, "device":
     ...}`` line.
@@ -107,6 +128,8 @@ under ``./data``, else their synthetic stand-ins.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
 import os
@@ -1652,6 +1675,353 @@ def phase_cxr(device="cuda", rows=CXR_ROWS, px=CXR_PX):
     return launches
 
 
+class _Tee(io.StringIO):
+    """Standard output kept as well as printed."""
+
+    def write(self, text):
+        sys.__stdout__.write(text)
+        return super().write(text)
+
+
+def _sync(device):
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def _timed(fn, device):
+    """``(fn(), seconds)`` with the device synchronised at both ends."""
+    _sync(device)
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(device)
+    return out, time.perf_counter() - t0
+
+
+def _cast(tree, device, dtype=torch.float64):
+    return {k: t.detach().to(device, dtype) for k, t in tree.items()}
+
+
+def analysis_cxr(device="cuda", px=CXR_PX, rows=16, batch=4):
+    """Phase 14 maps: ``chestxray_mu0_01_K0`` (seed 1226) against a
+    ``chestxray_mu0`` baseline (seed 1227) and a third ``chestxray_mu0``
+    (seed 1228) for ``jaccard_comp``, random weights, on ``rows`` NIH
+    stand-in rows at ``px``: ms a batch of each map and audit."""
+    from optwboundeigenval_tpu_torch.analysis import jaccard
+    from optwboundeigenval_tpu_torch.analysis.grad_cam import grad_cam
+    from optwboundeigenval_tpu_torch.analysis.guided_backprop import generate_gradients
+    from optwboundeigenval_tpu_torch.analysis.saliency import batch_saliency
+    from optwboundeigenval_tpu_torch.configs import chestxray_mu0, chestxray_mu0_01_K0
+    from optwboundeigenval_tpu_torch.train.driver import build_trainer
+
+    loader = cxr_loaders((batch, batch, rows), px, batch)["test_loader"][0]
+    with tempfile.TemporaryDirectory() as tmp:
+        dirs = dict(log_dir=f"{tmp}/logs", model_dir=f"{tmp}/models")
+        trs = [build_trainer(cfg.options(device=device, seed=seed, **dirs))
+               for cfg, seed in ((chestxray_mu0_01_K0, 1226), (chestxray_mu0, 1227),
+                                 (chestxray_mu0, 1228))]
+        for tr in trs:
+            tr.init_state()
+        tr, base = trs[0], trs[1]
+        if tr.task.model.backbone != "densenet121" or tr.batch_size != batch:
+            fail("analysis cxr: the recipe lost its trunk or batch")
+        batches = [b["x"] for b in loader]
+        maps = {"saliency": lambda x: batch_saliency(tr.task, tr.params, tr.model_state, x),
+                "guided": lambda x: generate_gradients(tr.task, tr.params, tr.model_state, x),
+                "gradcam": lambda x: grad_cam(tr.task, tr.params, tr.model_state, x,
+                                              "features")}
+        for name, fn in maps.items():
+            fn(batches[0])  # warm-up
+            if device == "cuda":
+                phase_profile(None, None, f"cxr {name} map, one batch",
+                              step=lambda: fn(batches[0]))
+            outs, sec = _timed(lambda: [fn(x) for x in batches], device)
+            out = np.concatenate([np.asarray(o.cpu() if isinstance(o, torch.Tensor) else o)
+                                  for o in outs])
+            want = (rows, px, px) + (() if name == "gradcam" else (3,))
+            log(f"analysis cxr {name}: {1e3 * sec / len(batches):.1f} ms a batch of {batch} "
+                f"at {px} px, shape {out.shape}, max {np.abs(out).max():.4g}")
+            if out.shape != want or not np.isfinite(out).all() or not np.abs(out).max() > 0:
+                fail(f"analysis cxr {name}: maps of shape {out.shape}, not finite or all 0")
+        for method in maps:
+            res, sec = _timed(lambda: jaccard.jaccard_audit(
+                tr, base, loader, method=method, layer_path="features", train_meta=True,
+                log_dir=dirs["log_dir"], plot_dir=f"{tmp}/plots", tag=f"jaccard_{method}"),
+                device)
+            jac = res["jaccard"]
+            log(f"analysis cxr jaccard_audit {method}: {1e3 * sec / len(batches):.1f} ms a "
+                f"batch, mean jaccard {jac.mean():.4f}, conditioned {res['conditioned'].tolist()}, "
+                f"counts {res['counts'].tolist()}, meta |w| {np.abs(res['meta']['w']).max():.3g}")
+            csv = f"{dirs['log_dir']}/{tr.header2}_jaccard_{method}_values.csv"
+            if (jac.shape != (rows,) or not ((jac >= 0) & (jac <= 1)).all()
+                    or not os.path.exists(csv) or not np.isfinite(res["meta"]["w"]).all()
+                    or res["counts"].sum() != rows):
+                fail(f"analysis cxr jaccard_audit {method}: {res}")
+        # over every row: random weights seldom agree on the arg max
+        mat, sec = _timed(lambda: jaccard.jaccard_comp(trs, loader, same_pred_only=False,
+                                                       log_dir=dirs["log_dir"]), device)
+        log(f"analysis cxr jaccard_comp over 3 trainers: {1e3 * sec / len(batches):.1f} ms a "
+            f"batch, matrix {np.round(mat, 4).tolist()}")
+        if (mat.shape != (3, 3) or not np.array_equal(np.diag(mat), np.ones(3))
+                or not np.array_equal(mat, mat.T) or not ((mat >= 0) & (mat <= 1)).all()):
+            fail("analysis cxr jaccard_comp: not a symmetric 3x3 matrix of Jaccards")
+    return tr
+
+
+def analysis_cxr_card_vs_cpu(tr, device="cuda", px=64, rows=2):
+    """The three maps of ``tr``'s model in float64 on the card and the CPU,
+    at ``px`` px and batch ``rows``, within ``CARD_F64_RTOL``."""
+    from optwboundeigenval_tpu_torch.analysis.grad_cam import grad_cam
+    from optwboundeigenval_tpu_torch.analysis.guided_backprop import generate_gradients
+    from optwboundeigenval_tpu_torch.analysis.saliency import batch_saliency
+    from optwboundeigenval_tpu_torch.data.synthetic import make_multilabel
+
+    x = make_multilabel(rows, shape=(px, px, 3), n_classes=14, seed=1226)[0].astype(np.float64)
+    task = tr.task
+    out = {}
+    for dev in (device, "cpu"):
+        p, st = _cast(tr.params, dev), _cast(tr.model_state, dev)
+        out[dev] = [np.asarray(m.cpu() if isinstance(m, torch.Tensor) else m) for m in (
+            batch_saliency(task, p, st, x), generate_gradients(task, p, st, x),
+            grad_cam(task, p, st, x, "features"))]
+    errs = [_rel(torch.from_numpy(a), torch.from_numpy(b))
+            for a, b in zip(out[device], out["cpu"])]
+    log(f"analysis cxr float64 maps at {px} px, batch {rows}, card vs cpu: relative errors "
+        f"saliency {errs[0]:.3e}, guided {errs[1]:.3e}, gradcam {errs[2]:.3e} "
+        f"(bound {CARD_F64_RTOL:g})")
+    if not max(errs) < CARD_F64_RTOL:
+        fail("analysis cxr: the card's float64 maps and the CPU's disagree")
+    return errs
+
+
+def _gan_pair(kind, feat_or_n):
+    from optwboundeigenval_tpu_torch.models import gan
+
+    g = torch.Generator().manual_seed(1226)
+    if kind == "mlp":
+        return (gan.MLPGenerator(n=feat_or_n, generator=g).double(),
+                gan.MLPDiscriminator(n=feat_or_n, generator=g).double())
+    return (gan.DCGenerator(feat=feat_or_n, generator=g).double(),
+            gan.DCDiscriminator(feat=feat_or_n, generator=g).double())
+
+
+def analysis_gan_card_vs_cpu(device="cuda", steps=2, batch=64):
+    """Two float64 ``train_cgan`` steps of the published MLP cGAN (nodes 32,
+    label tricks and AdamW as the script sets them) and of the DC-cGAN
+    (feat 64) from one state on the card and the CPU, the draws (dropout
+    masks included) made once on the CPU and injected: losses,
+    parameters, BatchNorm statistics and Adam moments within
+    ``CARD_F64_RTOL``."""
+    from optwboundeigenval_tpu_torch.analysis import gan_train
+
+    errs = {}
+    for kind, width, side in (("mlp", 32, 16), ("dc", 64, 32)):
+        rng = np.random.default_rng(1226)
+        x = rng.uniform(-1, 1, (batch * steps, side, side, 1))
+        y = rng.integers(0, 10, batch * steps)
+        kw = dict(n_epochs=1, batch_size=batch, lr=1e-4, weight_decay=2e-5, rand=0.3,
+                  swap=0.5, cosine_schedule=True, log_every=100)
+        shapes = _gan_pair(kind, width)[1].dropout_shapes
+        gen = torch.Generator().manual_seed(7)
+        draws = [gan_train.cgan_draws(gen, batch_size=batch, latent_dim=100, n_classes=10,
+                                      rand=0.3, smooth=0.0, swap=0.5, dropout_shapes=shapes,
+                                      dtype=torch.float64, device="cpu") for _ in range(steps)]
+        runs = {}
+        for dev in (device, "cpu"):
+            g, d = _gan_pair(kind, width)
+            on = lambda v: ([t.to(dev) for t in v] if isinstance(v, list) else v.to(dev))
+            dd = [{k: on(v) for k, v in dr.items()} for dr in draws]
+            hist, g_opt, d_opt = gan_train.train_cgan(x, y, g, d, device=dev,
+                                                      draws=lambda i: dd[i], **kw)
+            runs[dev] = (torch.tensor(hist[0][1:]), g.state_dict(), d.state_dict(),
+                         g_opt.mu, g_opt.nu, d_opt.mu, d_opt.nu)
+        errs[kind] = max(_rel(a, b) for a, b in zip(runs[device], runs["cpu"]))
+    log(f"analysis gan float64 {steps} steps, card vs cpu (losses, parameters, BatchNorm "
+        f"statistics, Adam moments): relative error MLP {errs['mlp']:.3e}, DC {errs['dc']:.3e} "
+        f"(bound {CARD_F64_RTOL:g})")
+    if not max(errs.values()) < CARD_F64_RTOL:
+        fail("analysis gan: the card's float64 steps and the CPU's disagree")
+    return errs
+
+
+def _script(main, argv):
+    """``main(argv)`` with its standard output kept: ``(result, text)``."""
+    tee = _Tee()
+    with contextlib.redirect_stdout(tee):
+        out = main(argv)
+    return out, tee.getvalue()
+
+
+def analysis_gans(tmp, device="cuda"):
+    """The ``gan`` script: the MLP cGAN at its published defaults for 2
+    epochs and 10,000 images, the DC-cGAN for 1 epoch; steps/s, peak memory,
+    and the busy share of a profiled 20-step run."""
+    from optwboundeigenval_tpu_torch.analysis import gan_train
+    from optwboundeigenval_tpu_torch.data import usps
+    from optwboundeigenval_tpu_torch.scripts import gan as gan_script
+
+    rates = {}
+    for label, extra in (("mlp cgan", ["--n_epochs", "2"]),
+                         ("dc cgan", ["--dc", "--n_epochs", "1", "--gen_images", "1000"])):
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        argv = extra + ["--device", device, "--out", f"{tmp}/data/gan_usps.npz",
+                        "--models_dir", f"{tmp}/models", "--sample_dir", f"{tmp}/images"]
+        (path, text), sec = _timed(lambda: _script(gan_script.main, argv), device)
+        line = [ln for ln in text.splitlines() if ln.startswith("trained ")][0]
+        rates[label] = float(line.split(", ")[1].split()[0])
+        peak = torch.cuda.max_memory_allocated() if device == "cuda" else None
+        with np.load(path) as z:
+            gx, gy = z["x"], z["y"]
+        n = 10000 if label == "mlp cgan" else 1000
+        side = 16 if label == "mlp cgan" else 32
+        log(f"analysis {label}: {line}; the script {sec:.2f} s, max_memory_allocated {peak} B; "
+            f"{len(gx)} images {gx.shape[1:]}, range [{gx.min():.3f}, {gx.max():.3f}], "
+            f"classes {np.bincount(gy, minlength=10).tolist()}")
+        if gx.shape != (n, side, side, 1) or not np.isfinite(gx).all() or np.abs(gx).max() > 1:
+            fail(f"analysis {label}: generated images of shape {gx.shape} or out of [-1, 1]")
+    if device == "cuda":
+        x0, y0 = usps.load_usps(train=True)
+        for label, flags in (("mlp cgan", []), ("dc cgan", ["--dc"])):
+            args = gan_script.parse_args(flags + ["--device", device])
+            x, g, d, _ = gan_script.build(args, (x0 - 0.5) / 0.5)
+            n = 20 * args.batch_size
+            run = lambda: gan_train.train_cgan(
+                x[:n], y0[:n], g, d, n_epochs=1, lr=args.lr, b1=args.b1, b2=args.b2,
+                weight_decay=args.weight_decay, rand=args.rand, swap=args.swap,
+                cosine_schedule=True, device=device)
+            run()
+            phase_profile(None, None, f"{label}, 20 steps at the published defaults", step=run)
+    return rates
+
+
+def analysis_distances(tmp, device="cuda"):
+    """The ``distance`` script (Euclid and cosine) on the 10,000 generated
+    images against the 2,007 USPS test rows, and ``create_dist`` over the
+    two augmented test sets."""
+    from optwboundeigenval_tpu_torch.data import usps
+    from optwboundeigenval_tpu_torch.scripts import create_dist, distance
+
+    for dist in ("euclid", "cosine"):
+        argv = [dist, "GAN", "--device", device, "--data_dir", f"{tmp}/data",
+                "--plot_dir", f"{tmp}/plots"]
+        (dmm, _), sec = _timed(lambda: _script(distance.main, argv), device)
+        log(f"analysis distance {dist}: 2,007 test rows x {len(dmm)} generated, {sec:.3f} s, "
+            f"mean {dmm.mean():.4f}, min {dmm.min():.4f}, max {dmm.max():.4f}")
+        if dmm.shape != (10000,) or not np.isfinite(dmm).all():
+            fail(f"analysis distance {dist}: {dmm.shape}")
+    argv = ["--dist", "cosine", "--seed", "1226", "--device", device, "--data_dir",
+            f"{tmp}/data", "--plot_dir", f"{tmp}/plots"]
+    (out, _), sec = _timed(lambda: _script(create_dist.main, argv), device)
+    ld = usps.get_gan_loader(batch_size=128, file="constructed.npz", root=f"{tmp}/data")
+    log(f"analysis create_dist cosine: {sec:.3f} s, {ld.num_examples} rows of "
+        f"{ld.x.shape[1:]} in {out}")
+    if ld.x.shape[1:] != (16, 16, 1) or not 0 < ld.num_examples <= 2 * 2007:
+        fail("analysis create_dist: the constructed set is malformed")
+
+
+# (config, mu, K): the two configs as published and the script's mu=0.01 K=1
+FOREST_VARIANTS = (("forest_best", 0.0028, 1.0), ("forest_unreg", 0.0, 0.0),
+                   ("forest_best", 0.01, 1.0))
+
+
+def analysis_cov_shift(tmp, device="cuda", iters=100):
+    """Three Forest variants for 1 epoch through ``driver.run``, the
+    ``cov_shift_test`` script's ``iters`` shifts on their best checkpoints
+    (draws/s), and the float64 sweep of the same checkpoints on the card
+    vs the CPU, acc and F1 within ``CARD_F64_RTOL``."""
+    from optwboundeigenval_tpu_torch.analysis import cov_shift
+    from optwboundeigenval_tpu_torch.configs import forest_best, forest_unreg
+    from optwboundeigenval_tpu_torch.data import forest
+    from optwboundeigenval_tpu_torch.models.mlp_forest import ForestNet
+    from optwboundeigenval_tpu_torch.optim.api import sgd
+    from optwboundeigenval_tpu_torch.scripts import cov_shift_test
+    from optwboundeigenval_tpu_torch.train import driver
+    from optwboundeigenval_tpu_torch.train.task import Task
+    from optwboundeigenval_tpu_torch.train.trainer import SpectralTrainer
+
+    mods = {"forest_best": forest_best, "forest_unreg": forest_unreg}
+    for name, mu, K in FOREST_VARIANTS:
+        tr, sec = _timed(lambda: driver.run(mods[name].options(
+            max_iter=1, device=device, log_dir=f"{tmp}/logs", model_dir=f"{tmp}/models",
+            mu=mu, K=K)), device)
+        log(f"analysis cov shift: {tr.header2} 1 epoch through driver.run, {sec:.1f} s")
+    argv = [str(iters), "0.1", "--device", device, "--seed", "1226", "--models_dir",
+            f"{tmp}/models", "--log_dir", f"{tmp}/logs", "--plot_dir", f"{tmp}/plots"]
+    ((acc, f1, idx), text), sec = _timed(lambda: _script(cov_shift_test.main, argv), device)
+    log(f"analysis cov_shift_test: {acc.shape[0]} models x {iters} shifts in {sec:.2f} s, "
+        f"{iters / sec:.1f} draws/s; mean acc {acc.mean(axis=1).round(3).tolist()}, "
+        f"mean f1 {f1.mean(axis=1).round(4).tolist()}")
+    if acc.shape != (3, iters) or not (np.isfinite(acc).all() and np.isfinite(f1).all()):
+        fail("analysis cov_shift_test: the sweep lost a model or a value")
+    if "vs" not in text or np.any(idx[10:] != 0):
+        fail("analysis cov_shift_test: no slope comparison, or a binary column shifted")
+    data = forest.get_data()
+    x, y = data["inputs_test"], data["target_test"]
+    res = {}
+    for dev in (device, "cpu"):
+        models = [SpectralTrainer(Task(model=ForestNet().double()), sgd(0.5), header="Forest",
+                                  batch_size=128, device=dev, model_dir=f"{tmp}/models",
+                                  mu=mu, K=K) for _, mu, K in FOREST_VARIANTS]
+        res[dev] = cov_shift.cov_shift_tester(models, x, y, iters=iters, mult=0.1,
+                                              mean_diff=1.0, bad_modes=range(10, x.shape[1]),
+                                              header=f"f64_{dev}", log_dir=f"{tmp}/logs",
+                                              seed=1226)
+    err = max(float(np.abs(a - b).max() / np.abs(b).max())
+              for a, b in zip(res[device][:2], res["cpu"][:2]))
+    log(f"analysis cov shift float64 card vs cpu, {iters} shifts x 3 models: acc and f1 "
+        f"relative error {err:.3e} (bound {CARD_F64_RTOL:g}); indices equal "
+        f"{np.array_equal(res[device][2], res['cpu'][2])}")
+    if not (err < CARD_F64_RTOL and np.array_equal(res[device][2], res["cpu"][2])):
+        fail("analysis cov shift: the card's float64 sweep and the CPU's disagree")
+    return iters / sec
+
+
+def analysis_driver_route(tmp, device="cuda"):
+    """``usps_cnn_mu0_01_K0`` for 1 epoch through ``driver.run``, then again
+    (seed 1227) with ``saliency`` and ``jaccard`` against the first run's
+    best checkpoint: the CSVs and the saliency ``.npz`` must exist."""
+    from optwboundeigenval_tpu_torch.configs import usps_cnn_mu0_01_K0 as cfg
+    from optwboundeigenval_tpu_torch.train import driver
+
+    first = driver.run(cfg.options(max_iter=1, device=device, log_dir=f"{tmp}/u0/logs",
+                                   model_dir=f"{tmp}/u0/models"))
+    best = os.path.join(first.model_dir, first.header2 + "_trained_model_best.pt")
+    tr, sec = _timed(lambda: driver.run(cfg.options(
+        max_iter=1, device=device, seed=1227, saliency=True, jaccard=True, comp_fname=best,
+        log_dir=f"{tmp}/u1/logs", model_dir=f"{tmp}/u1/models", plot_dir=f"{tmp}/u1/plots")),
+        device)
+    csvs = [f"{tr.log_dir}/{tr.header2}_jaccard_{t}.csv" for t in ("cond", "counts", "values")]
+    npz = f"{tmp}/u1/plots/{tr.header2}_saliency.npz"
+    missing = [f for f in csvs + [npz] if not os.path.exists(f)]
+    values = np.loadtxt(csvs[2], delimiter=",") if not missing else np.zeros(0)
+    log(f"analysis driver route: usps_cnn_mu0_01_K0 with saliency and jaccard, {sec:.1f} s; "
+        f"{len(values)} jaccards, mean {values.mean() if len(values) else float('nan'):.4f}; "
+        f"missing {missing}")
+    if missing or len(values) != 2007:
+        fail(f"analysis driver route: missing {missing} or {len(values)} jaccards")
+
+
+def phase_analysis(device="cuda"):
+    """Phase 14: the analysis path."""
+    t0 = time.perf_counter()
+    lap = lambda what: log(f"phase 14: {what} done, {time.perf_counter() - t0:.1f} s in")
+    tr = analysis_cxr(device)
+    lap("CXR maps and audits at 224 px")
+    analysis_cxr_card_vs_cpu(tr, device)
+    lap("float64 maps card vs cpu")
+    with tempfile.TemporaryDirectory() as tmp:
+        analysis_gans(tmp, device)
+        lap("the cGANs")
+        analysis_gan_card_vs_cpu(device)
+        lap("float64 GAN steps card vs cpu")
+        analysis_distances(tmp, device)
+        lap("distances")
+        analysis_cov_shift(tmp, device)
+        lap("covariate shift")
+        analysis_driver_route(tmp, device)
+        lap("the driver's saliency and jaccard routes")
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs an NVIDIA GPU")
@@ -1687,6 +2057,8 @@ def main():
     done("phase 12")
     launches += phase_cxr()
     done("phase 13")
+    phase_analysis()
+    done("phase 14")
     kernels = [{**entry, "launches": launches}]
     log(json.dumps({"kernels": kernels}))
     log(smi)

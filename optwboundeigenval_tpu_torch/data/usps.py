@@ -8,7 +8,11 @@ synthetic stand-in with the same shapes (7,291 train and 2,007 test
 16x16x1 images, 10 classes).  ``augment=True`` puts the reference's
 crop-pad 1 + rotation 15 degrees (``transforms.usps_augment``) on the train
 loader; ``get_test_loader(augment=True)`` returns the two augmented test
-loaders.
+loaders.  ``get_mnist_loader`` (MNIST resized to 16x16, the OOD test set)
+reads the raw idx files from ``root`` when present; ``get_gan_loader``
+reads a generated or constructed ``.npz`` (``x`` (N, 16, 16, 1) float32,
+``y`` int32, the JAX package's layout); each falls back to a synthetic
+stand-in.
 """
 
 from __future__ import annotations
@@ -87,3 +91,38 @@ def get_test_loader(batch_size: int = 128, augment: bool = False,
                         augment=usps_augment(pad=1, degrees=15)),
             ArrayLoader(x, y, batch_size, seed=seed + 1,
                         augment=usps_augment(pad=2, degrees=30))]
+
+
+def get_mnist_loader(batch_size: int = 128, root: str = "./data"):
+    """MNIST's test set resized to 16x16 (linear ``ndimage.zoom``) as an OOD
+    test set (usps_data.py:209-265), from ``t10k-images-idx3-ubyte`` and
+    ``t10k-labels-idx1-ubyte`` under ``root``; else 2,000 synthetic rows."""
+    img_f = os.path.join(root, "t10k-images-idx3-ubyte")
+    lbl_f = os.path.join(root, "t10k-labels-idx1-ubyte")
+    if os.path.exists(img_f) and os.path.exists(lbl_f):
+        from scipy import ndimage
+
+        with open(img_f, "rb") as fh:
+            fh.read(16)
+            x = np.frombuffer(fh.read(), np.uint8).reshape(-1, 28, 28)
+        with open(lbl_f, "rb") as fh:
+            fh.read(8)
+            y = np.frombuffer(fh.read(), np.uint8).astype(np.int32)
+        x = ndimage.zoom(x.astype(np.float32) / 255.0, (1, 16 / 28, 16 / 28), order=1)
+        x = x[..., None].astype(np.float32)
+    else:
+        x, y = make_images(2000, shape=(16, 16, 1), n_classes=10, seed=SEED + 7)
+    return ArrayLoader(x, y, batch_size)
+
+
+def get_gan_loader(batch_size: int = 128, file: str = "gan_usps.npz", root: str = "./data"):
+    """A saved generated dataset (usps_data.py:268-295): ``<root>/<file>``,
+    an ``.npz`` of ``x`` and ``y`` as ``analysis/gan_train.generate_dataset``
+    and ``analysis/distance.create_dist_dataset`` write it; else 1,024
+    synthetic rows."""
+    path = os.path.join(root, file)
+    if os.path.exists(path):
+        with np.load(path) as z:
+            return ArrayLoader(z["x"], z["y"], batch_size)
+    x, y = make_images(1024, shape=(16, 16, 1), n_classes=10, seed=SEED + 13)
+    return ArrayLoader(x, y, batch_size)

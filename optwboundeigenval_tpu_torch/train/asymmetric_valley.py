@@ -27,6 +27,7 @@ from typing import Optional
 
 import numpy as np
 
+from optwboundeigenval_tpu_torch.analysis.plots import pyplot
 from optwboundeigenval_tpu_torch.ops import curvature
 from optwboundeigenval_tpu_torch.train import checkpoints
 from optwboundeigenval_tpu_torch.train.trainer import CKPT_BEST, SpectralTrainer, _as_loader
@@ -209,14 +210,9 @@ class AsymmetricValleyTrainer(SpectralTrainer):
             np.savetxt(os.path.join(self.log_dir, f"asymmetric_valley_{key}_results.txt"),
                        values)
         self.interpolated = True
-        try:
-            import matplotlib
-        except ImportError:
-            print("asymmetric valley: plots skipped, matplotlib is not installed", flush=True)
+        plt = pyplot("asymmetric valley")
+        if plt is None:
             return
-        matplotlib.use("Agg")
-        import matplotlib.pyplot as plt
-
         os.makedirs(self.plot_dir, exist_ok=True)
         for key, values in results.items():
             plt.cla()

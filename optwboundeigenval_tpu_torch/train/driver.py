@@ -6,9 +6,23 @@ python-module-as-config pattern (opt.py:1990-1994).  ``build_trainer``
 passes that dict into the trainer constructor by reflection
 (``missing_params``/``arg_dic``, opt.py:1940-1965, with ``tol`` read as
 ``eps``), and ``run`` executes the cascade train -> test -> parse ->
-aug_test -> comp_test -> rho_test off the option flags (opt.py:2018-2102;
-``comp_test`` is ``analysis/comp.py``, the chest x-ray recipes' cross-
-dataset evaluation over the classes shared with ``model_class_to_idx``).
+aug_test -> comp_test -> rho_test -> saliency -> jaccard -> jaccard_comp
+off the option flags (opt.py:2018-2102; ``comp_test`` is
+``analysis/comp.py``, the chest x-ray recipes' cross-dataset evaluation
+over the classes shared with ``model_class_to_idx``).
+
+The analysis routes run on the first test loader (``saliency``: every
+test loader): ``saliency`` writes up to ``max_img`` (10) maps
+(``analysis/saliency.saliency_maps``); ``jaccard`` audits the trained
+model's maps against a baseline, ``baseline_trainer`` or a trainer of the
+same options loaded from ``comp_fname`` (the first of a list), with
+``saliency_method`` (``saliency``, ``guided`` or ``gradcam`` on the
+module ``cam_layer``) and ``max_img`` (25) triptychs; ``jaccard_comp``
+compares the model with the trainers ``comp_trainers``.  CSVs go to the
+trainer's ``log_dir`` (the JAX driver writes them to ``./logs``), figures
+and the saliency ``.npz`` to ``plot_dir`` (``./plots``).  ``jaccard``
+without a baseline and ``jaccard_comp`` without ``comp_trainers`` raise
+(the JAX driver skips them without a word).
 ``pretrained_npz`` overlays converted ImageNet weights on the fresh
 parameters before training (``models/backbones.load_pretrained_npz``,
 scoped by ``pretrained_prefix``, default ``"features"``).
@@ -18,8 +32,7 @@ own keywords (``swa_start``, ``sgd_start``, ...) beside the trainer's
 (JAX driver.py:56-69).  An option that is neither a trainer argument,
 an Asymmetric Valley argument nor one the driver reads raises, so a
 setting the port does not implement is never dropped without a word.
-The JAX driver's ``device_data``, ``saliency``, ``jaccard`` and
-``jaccard_comp`` are not ported and raise when set.
+The JAX driver's ``device_data`` is not ported and raises when set.
 """
 
 from __future__ import annotations
@@ -31,6 +44,8 @@ from typing import Any, Dict
 import numpy as np
 
 from optwboundeigenval_tpu_torch.analysis.comp import comp_test
+from optwboundeigenval_tpu_torch.analysis.jaccard import jaccard_audit, jaccard_comp
+from optwboundeigenval_tpu_torch.analysis.saliency import saliency_maps
 from optwboundeigenval_tpu_torch.data.loaders import ArrayLoader
 from optwboundeigenval_tpu_torch.models.backbones import load_pretrained_npz
 from optwboundeigenval_tpu_torch.train.asymmetric_valley import AsymmetricValleyTrainer
@@ -46,6 +61,9 @@ _DRIVER_KEYS = {
     "train_loader_na", "test_loader", "test_loader_aug", "train", "test",
     "fname", "aug_test", "rho_test", "crops", "asymmetric_valley", "comp_test",
     "pretrained_npz", "pretrained_prefix", "model_class_to_idx",
+    # the analysis routes
+    "saliency", "jaccard", "jaccard_comp", "comp_fname", "baseline_trainer",
+    "comp_trainers", "saliency_method", "cam_layer", "max_img",
     # the test cascade's class subsetting (test_model's keywords)
     "classes", "model_classes", "other_classes",
     # data facts the Forest loader returns beside its arrays
@@ -54,7 +72,7 @@ _DRIVER_KEYS = {
 _TEST_KEYS = ("classes", "model_classes", "other_classes")
 # the JAX driver's options whose code is not ported yet; inert when unset,
 # None or False
-_UNPORTED = ("device_data", "saliency", "jaccard", "jaccard_comp")
+_UNPORTED = ("device_data",)
 
 
 def arg_dic(fn, options: Dict[str, Any], replace=None) -> Dict[str, Any]:
@@ -79,6 +97,11 @@ def _check_known(options: Dict[str, Any]) -> None:
     unknown = sorted(set(options) - known)
     if unknown:
         raise NotImplementedError(f"options {unknown} are not known to the port")
+    if options.get("jaccard") and not (options.get("baseline_trainer") is not None
+                                       or options.get("comp_fname")):
+        raise ValueError("jaccard=True needs baseline_trainer or comp_fname")
+    if options.get("jaccard_comp") and not options.get("comp_trainers"):
+        raise ValueError("jaccard_comp=True needs comp_trainers")
 
 
 def build_trainer(options: Dict[str, Any]) -> SpectralTrainer:
@@ -164,7 +187,32 @@ def run(options: Dict[str, Any]) -> SpectralTrainer:
     if options.get("rho_test", False):
         trainer.rho_test(loader=train_loader_na if train_loader_na is not None
                          else train_loader)
+
+    if test_loaders:
+        _analysis(trainer, test_loaders, options)
     return trainer
+
+
+def _analysis(trainer, test_loaders, options) -> None:
+    """The saliency, jaccard and jaccard_comp routes (JAX driver.py:195-229)."""
+    plot_dir = options.get("plot_dir", "./plots")
+    method = options.get("saliency_method", "saliency")
+    cam_layer = options.get("cam_layer")
+    if options.get("saliency", False):
+        for tl in test_loaders:
+            saliency_maps(trainer, tl, max_img=options.get("max_img", 10), plot_dir=plot_dir)
+    if options.get("jaccard", False):
+        baseline = options.get("baseline_trainer")
+        if baseline is None:
+            baseline = build_trainer(options)
+            fname = options["comp_fname"]
+            baseline.model_load(fname[0] if isinstance(fname, list) else fname)
+        jaccard_audit(trainer, baseline, test_loaders[0], max_img=options.get("max_img", 25),
+                      method=method, layer_path=cam_layer, log_dir=trainer.log_dir,
+                      plot_dir=plot_dir)
+    if options.get("jaccard_comp", False):
+        jaccard_comp([trainer] + list(options["comp_trainers"]), test_loaders[0],
+                     method=method, layer_path=cam_layer, log_dir=trainer.log_dir)
 
 
 def main(config_name: str, **overrides) -> SpectralTrainer:

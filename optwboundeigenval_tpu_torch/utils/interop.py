@@ -36,6 +36,18 @@ does.  :func:`from_jax`/:func:`to_jax` carry any of the port's models
 across through that map, and the K-FAC factor functions take it for the
 chest x-ray models' layer names (``features/Conv_0`` is
 ``features.conv0``, ``head/transit_conv`` is ``head.transit_conv``).
+:func:`module_names` extends the map to every flax scope above those
+layers (``features``, ``BottleneckBlock_3``, ``_Bottleneck_5``), the
+port's module whose submodules hold the scope's layers, so that a JAX
+Grad-CAM ``cam_layer`` such as CNNUSPS's ``Conv_2`` names the port's
+``conv3``.
+
+The GANs (``models/gan.py``) keep flax's creation order too: ``Embed_0``
+is ``label_emb`` (the table as it is), ``Dense_i``, ``Conv_i`` and
+``BatchNorm_i`` as above, and ``ConvTranspose_i`` a transposed
+convolution whose kernel is ``(k, k, in, out)`` there and ``(in, out, k,
+k)`` here, flipped in both spatial axes (flax's ``ConvTranspose`` does not
+flip, torch's does).
 """
 
 from __future__ import annotations
@@ -102,6 +114,10 @@ def _pairs_from_jax(pairs, params, batch_stats) -> Tuple[Tree, Tree]:
             s[f"{name}.running_var"] = _t(stats["var"])
         elif kind == "conv":
             p[f"{name}.weight"] = _t(np.asarray(src["kernel"]).transpose(3, 2, 0, 1))
+        elif kind == "deconv":
+            p[f"{name}.weight"] = _t(np.asarray(src["kernel"])[::-1, ::-1].transpose(2, 3, 0, 1))
+        elif kind == "embed":
+            p[f"{name}.weight"] = _t(src["embedding"])
         else:
             p[f"{name}.weight"] = _t(np.asarray(src["kernel"]).T)
         if "bias" in src:
@@ -121,6 +137,10 @@ def _pairs_to_jax(pairs, params: Tree, model_state: Tree):
                             "var": _a(model_state[f"{name}.running_var"])})
         elif kind == "conv":
             leaf = {"kernel": np.ascontiguousarray(w.transpose(2, 3, 1, 0))}
+        elif kind == "deconv":
+            leaf = {"kernel": np.ascontiguousarray(w.transpose(2, 3, 0, 1)[::-1, ::-1])}
+        elif kind == "embed":
+            leaf = {"embedding": w}
         else:
             leaf = {"kernel": np.ascontiguousarray(w.T)}
         if f"{name}.bias" in params:
@@ -205,14 +225,47 @@ def _trunk_pairs(trunk: nn.Module, prefix: str, scope: Tuple[str, ...]) -> List:
     return out
 
 
+def _gan_pairs(model: nn.Module) -> List:
+    """``(port prefix, flax path, kind)`` of a ``models/gan.py`` module, in
+    the creation order of its flax counterpart (JAX gan.py:26-127)."""
+    from optwboundeigenval_tpu_torch.models import gan
+
+    n = _Names()
+    out = [("label_emb", n("Embed"), "embed")]
+    layer = lambda name, cls, kind: out.append((name, n(cls), kind))
+    if isinstance(model, gan.MLPGenerator):
+        for i in range(len(model.fc)):
+            layer(f"fc.{i}", "Dense", "dense")
+            if i > 0:
+                layer(f"bn.{i - 1}", "BatchNorm", "bn")
+        layer("out", "Dense", "dense")
+    elif isinstance(model, gan.MLPDiscriminator):
+        for name in ("fc1", "fc2", "fc3", "fc4"):
+            layer(name, "Dense", "dense")
+    elif isinstance(model, gan.DCGenerator):
+        for i in range(len(model.deconv)):
+            layer(f"deconv.{i}", "ConvTranspose", "deconv")
+            layer(f"bn.{i}", "BatchNorm", "bn")
+        layer("out", "ConvTranspose", "deconv")
+    else:
+        for i in range(len(model.conv)):
+            layer(f"conv.{i}", "Conv", "conv")
+        layer("fc", "Dense", "dense")
+    return out
+
+
 def model_pairs(model: nn.Module) -> List:
     """``(port prefix, flax path, kind)`` of every layer of ``model``: a
     ``CXRModel`` (or any module with a trunk ``features`` and a
-    ``TransitHead`` ``head``), a ``DenseNet121Sigmoid``, a bare trunk, or
-    a ``DenseNet3``."""
+    ``TransitHead`` ``head``), a ``DenseNet121Sigmoid``, a bare trunk, a
+    ``DenseNet3`` or one of the GANs."""
+    from optwboundeigenval_tpu_torch.models import gan
     from optwboundeigenval_tpu_torch.models.cxr import DenseNet121Sigmoid, TransitHead
     from optwboundeigenval_tpu_torch.models.densenet import DenseNet3
 
+    if isinstance(model, (gan.MLPGenerator, gan.MLPDiscriminator, gan.DCGenerator,
+                          gan.DCDiscriminator)):
+        return _gan_pairs(model)
     if isinstance(model, DenseNet3):
         return list(_densenet3_pairs(len(model.block1.layer)))
     if isinstance(model, DenseNet121Sigmoid):
@@ -237,6 +290,39 @@ def to_jax(model: nn.Module, params: Tree, model_state: Tree):
     """The port's ``(params, model_state)`` of ``model`` -> flax ``(params,
     batch_stats)`` as nested dicts of numpy arrays."""
     return _pairs_to_jax(model_pairs(model), params, model_state)
+
+
+def module_names(model: nn.Module) -> Dict[str, str]:
+    """flax module path -> the port's module name, for every layer with
+    weights of ``model`` (``ForestNet``, ``CNNUSPS`` or a model of
+    :func:`model_pairs`) and every flax scope above them; a scope is the
+    longest dotted prefix shared by the modules that hold its layers
+    (``features`` -> ``features``, ``BottleneckBlock_3`` ->
+    ``block1.layer.3``)."""
+    from optwboundeigenval_tpu_torch.models.cnn_usps import CNNUSPS
+    from optwboundeigenval_tpu_torch.models.mlp_forest import ForestNet
+
+    if isinstance(model, CNNUSPS):
+        leaves = [(dst, (src,)) for src, dst in _CNNUSPS_CONVS]
+        leaves += [("fc1", ("Dense_0",)), ("fc2", ("Dense_1",))]
+    elif isinstance(model, ForestNet):
+        leaves = [(name, (name,)) for name in ("fc1", "fc2", "fc3")]
+    else:
+        leaves = [(name, path) for name, path, _ in model_pairs(model)]
+    out = {"/".join(path): name for name, path in leaves}
+    holders: Dict[Tuple[str, ...], List[List[str]]] = {}
+    for name, path in leaves:
+        for i in range(1, len(path)):
+            holders.setdefault(path[:i], []).append(name.split(".")[:-1])
+    for scope, parents in holders.items():
+        common = parents[0]
+        for p in parents[1:]:
+            k = 0
+            while k < min(len(common), len(p)) and common[k] == p[k]:
+                k += 1
+            common = common[:k]
+        out["/".join(scope)] = ".".join(common)
+    return out
 
 
 def flatten(tree, sep: str = "/") -> Dict[str, np.ndarray]:

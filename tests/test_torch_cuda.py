@@ -265,3 +265,105 @@ def test_cxr_step_card_vs_cpu(cuda):
     for k in ("rho", "g", "gradf_norm", "gradg_norm"):
         assert abs(mg[k] - mc[k]) <= 1e-9 * abs(mc[k]), k
     assert float(tree_norm(tree_sub(dg, dc)) / tree_norm(dc)) < 1e-9
+
+
+# ---- the analysis path -------------------------------------------------------------
+
+
+def _rel(a, b):
+    a, b = (torch.as_tensor(np.asarray(t.cpu() if isinstance(t, torch.Tensor) else t))
+            for t in (a, b))
+    return float((a.double() - b.double()).norm() / b.double().norm())
+
+
+def test_analysis_maps_card_vs_cpu(cuda):
+    """Input-gradient, guided-backprop and Grad-CAM maps of a float64 CNNUSPS
+    on the card and the CPU."""
+    from optwboundeigenval_tpu_torch.analysis.grad_cam import grad_cam
+    from optwboundeigenval_tpu_torch.analysis.guided_backprop import generate_gradients
+    from optwboundeigenval_tpu_torch.analysis.saliency import batch_saliency
+    from optwboundeigenval_tpu_torch.models.cnn_usps import CNNUSPS
+
+    task = Task(model=CNNUSPS().double())
+    params, _ = task.init(torch.Generator().manual_seed(3), "cpu")
+    x = np.random.default_rng(0).normal(size=(6, 16, 16, 1))
+    for fn in (batch_saliency, generate_gradients,
+               lambda *a: grad_cam(*a, "conv3")):
+        got = fn(task, {k: t.to(cuda) for k, t in params.items()}, {}, x)
+        assert _rel(got, fn(task, params, {}, x)) < 1e-9
+
+
+def test_cgan_steps_card_vs_cpu(cuda):
+    """Two float64 ``train_cgan`` steps of the MLP and DC cGANs from one
+    state, the draws made once and injected."""
+    from optwboundeigenval_tpu_torch.analysis import gan_train
+    from optwboundeigenval_tpu_torch.models import gan
+
+    for make, side in ((lambda g: (gan.MLPGenerator(n=8, generator=g),
+                                   gan.MLPDiscriminator(n=8, generator=g)), 16),
+                       (lambda g: (gan.DCGenerator(feat=4, generator=g),
+                                   gan.DCDiscriminator(feat=4, generator=g)), 32)):
+        rng = np.random.default_rng(1)
+        x, y = rng.uniform(-1, 1, (32, side, side, 1)), rng.integers(0, 10, 32)
+        shapes = make(torch.Generator().manual_seed(0))[1].dropout_shapes
+        gen = torch.Generator().manual_seed(2)
+        draws = [gan_train.cgan_draws(gen, batch_size=16, latent_dim=100, n_classes=10,
+                                      rand=0.3, smooth=0.0, swap=0.5, dropout_shapes=shapes,
+                                      dtype=torch.float64, device="cpu") for _ in range(2)]
+        out = {}
+        for dev in ("cpu", cuda):
+            g, d = (m.double() for m in make(torch.Generator().manual_seed(0)))
+            on = lambda v: [t.to(dev) for t in v] if isinstance(v, list) else v.to(dev)
+            dd = [{k: on(v) for k, v in dr.items()} for dr in draws]
+            hist, g_opt, d_opt = gan_train.train_cgan(
+                x, y, g, d, n_epochs=1, batch_size=16, weight_decay=2e-5, rand=0.3, swap=0.5,
+                cosine_schedule=True, device=dev, draws=lambda i: dd[i])
+            out[str(dev)] = [{"": torch.tensor(hist[0][1:])}, g.state_dict(), d.state_dict(),
+                             g_opt.mu, d_opt.nu]
+        # each tree in the relative 2-norm: a bias ahead of a BatchNorm has a
+        # zero gradient, whose rounding noise Adam scales to ~1e-12 per entry,
+        # differently on the two devices
+        for a, b in zip(out["cuda"], out["cpu"]):
+            a, b = (torch.cat([t.detach().cpu().flatten() for t in tree.values()])
+                    for tree in (a, b))
+            assert float((a - b).norm() / b.norm()) < 1e-9
+
+
+def test_cov_shift_card_vs_cpu(cuda, tmp_path):
+    """The float64 covariate-shift sweep of a small ForestNet checkpoint on
+    the card and the CPU: equal indices, acc and F1 within 1e-9."""
+    from optwboundeigenval_tpu_torch.analysis import cov_shift
+    from optwboundeigenval_tpu_torch.data.synthetic import make_classification
+    from optwboundeigenval_tpu_torch.models.mlp_forest import ForestNet
+    from optwboundeigenval_tpu_torch.train.trainer import CKPT_BEST
+
+    x, y = make_classification(300, 8, 3, seed=0)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        tr = SpectralTrainer(Task(model=ForestNet(hidden=8, num_classes=3, in_features=8)
+                                  .double()), sgd(0.1), header="CS", batch_size=64,
+                             device=dev, model_dir=str(tmp_path / "m"))
+        tr.init_state()
+        if dev == "cpu":
+            tr.save(CKPT_BEST)
+        res[dev] = cov_shift.cov_shift_tester([tr], x, y, iters=10, mult=0.3, mean_diff=1.0,
+                                              sd_diff=0.2, skew_diff=1.0, seed=4,
+                                              log_dir=str(tmp_path / dev))
+    assert np.array_equal(res["cpu"][2], res["cuda"][2])
+    for a, b in zip(res["cuda"][:2], res["cpu"][:2]):
+        assert np.abs(a - b).max() <= 1e-9 * np.abs(b).max()
+
+
+def test_distances_and_meta_classifier_card_vs_cpu(cuda):
+    from optwboundeigenval_tpu_torch.analysis.distance import nearest_distances
+    from optwboundeigenval_tpu_torch.analysis.jaccard import fit_meta_classifier
+
+    rng = np.random.default_rng(3)
+    a, b = rng.random((300, 256)).astype(np.float32), rng.random((500, 256)).astype(np.float32)
+    for dist in ("euclid", "cosine"):
+        np.testing.assert_allclose(nearest_distances(a, b, dist, device="cuda"),
+                                   nearest_distances(a, b, dist, device="cpu"), rtol=1e-5)
+    maps, labels = rng.random((40, 256)) * 0.05, (rng.random((40, 14)) < 0.3).astype(float)
+    got, want = fit_meta_classifier(maps, labels), fit_meta_classifier(maps, labels, device="cpu")
+    for k in ("w", "b"):
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-4, atol=1e-4 * np.abs(want[k]).max())

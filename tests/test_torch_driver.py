@@ -425,9 +425,18 @@ def test_config_options_reach_the_trainer():
     ("device_data", True, "device_data"), ("saliency", True, "saliency"),
     ("jaccard_comp", True, "jaccard_comp")])
 def test_unknown_or_unported_config_keys_raise(key, value, match):
+    """An unknown or unported key raises ``NotImplementedError``.  The
+    analysis routes are ported: ``saliency`` builds, and an audit without
+    what it compares (a baseline, other trainers) raises ``ValueError``."""
     opts = forest_best.options(device="cpu", **{key: value})
-    with pytest.raises(NotImplementedError, match=match):
-        driver.build_trainer(opts)
+    if key == "saliency":
+        assert driver.build_trainer(opts).header2 == "Forest_SGD_mu0.0028_K1.0"
+    elif key in ("jaccard", "jaccard_comp"):
+        with pytest.raises(ValueError, match=match):
+            driver.build_trainer(opts)
+    else:
+        with pytest.raises(NotImplementedError, match=match):
+            driver.build_trainer(opts)
 
 
 def test_unported_config_choices_raise():
