@@ -117,9 +117,30 @@ Phases (any failure exits non-zero and prints no result line):
     and its slope comparison, and the float64 sweep on the card vs the
     CPU; ``usps_cnn_mu0_01_K0`` for 1 epoch through ``driver.run`` with
     ``saliency`` and ``jaccard`` against a first run's checkpoint;
-15. a ``{"kernels": [...]}`` line (K1's launches summed over phases 4, 7,
-    8, 10, 11, 12 and 13, each counted from 0 just before its run), the
-    card's name and power limit, and last the ``{"ok": true, "device":
+15. dropout, the gemm CNN, the legacy loops, the oracle and reference
+    checkpoints: the original DenseNet-40 of Huang et al. (``DenseNet3(depth=40,
+    growth_rate=12, reduction=1.0, bottleneck=False, drop_rate=0.2)``,
+    1,059,298 parameters) through ``driver.run`` with
+    ``cifar10_densenet_mu0_01_K0``'s options but the model,
+    ``has_dropout=True``, ``augment=False`` and ``max_iter=1``, on the
+    first 256 rows of each split (8 steps; a cut for time only) under the
+    recipe's ``remat``: s/epoch, steps/s, mean ``pow_iters``, a profiled
+    step and the peak memory; 2 steps with ``hvp_micro=2, remat=False``,
+    K1 launching ``2 * (pow_iters + 2)`` times a step; ``u.(H v) == v.(H
+    u)`` within one step's key in float32; a float64 step at batch 4 on the
+    card vs the CPU with the masks injected; ``usps_cnn_mu0_01_K0`` with
+    ``CNNUSPS(conv_impl='gemm')`` for one epoch on the first 2,048 train
+    rows (16 steps; a cut for time only), steps/s and HVPs/s beside phase
+    7's lax run, and its float64 step card vs CPU; ``legacy.train_epoch``,
+    ``validate`` and ``test`` on ``CXRModel(densenet121)`` at 224 px, batch
+    4, 16 NIH stand-in rows, and ``train2_epoch`` on a ``VAE`` over the
+    densenet121 trunk, ms a batch each; the curvature oracle in float64 on
+    the card; ``.pt`` round trips for ``forest``, ``usps_cnn`` and
+    ``densenet3``, and a torchvision-keyed densenet121 state dict (``module.``
+    prefixes, ``norm.1`` keys) into the trunk, outputs equal;
+16. a ``{"kernels": [...]}`` line (K1's launches summed over phases 4, 7,
+    8, 10, 11, 12, 13 and 15, each counted from 0 just before its run),
+    the card's name and power limit, and last the ``{"ok": true, "device":
     ...}`` line.
 
 Weights are random (seed 1226); the data are the real sets when they are
@@ -2022,6 +2043,325 @@ def phase_analysis(device="cuda"):
         lap("the driver's saliency and jaccard routes")
 
 
+# the original DenseNet of Huang et al. 2017 (Table 2: L=40, k=12, dropout
+# 0.2 on C10 without augmentation): 1,059,298 parameters, 456 channels at
+# the head
+ORIGINAL_DENSENET = dict(depth=40, growth_rate=12, reduction=1.0, bottleneck=False,
+                         drop_rate=0.2)
+ORIGINAL_DENSENET_PARAMS = 1_059_298
+
+
+def _original_densenet_opts(device, rows=None, tmp=None, **overrides):
+    """``cifar10_densenet_mu0_01_K0``'s options with only the model (the
+    original DenseNet-40), ``has_dropout``, ``augment=False`` and
+    ``max_iter=1`` changed, and ``overrides``; every split cut to its first
+    ``rows`` rows when given."""
+    from optwboundeigenval_tpu_torch.configs import cifar10_densenet_mu0_01_K0 as cfg
+    from optwboundeigenval_tpu_torch.data.loaders import ArrayLoader
+    from optwboundeigenval_tpu_torch.models.densenet import DenseNet3
+
+    dirs = {} if tmp is None else {"log_dir": f"{tmp}/logs", "model_dir": f"{tmp}/models"}
+    opts = cfg.options(model=DenseNet3(**ORIGINAL_DENSENET), has_dropout=True, augment=False,
+                       max_iter=1, device=device, **dirs, **overrides)
+    if rows is not None:
+        bs = opts["batch_size"]
+        cut = lambda ld, **kw: ArrayLoader(ld.x[:rows], ld.y[:rows], bs, **kw)
+        opts["train_loader"] = cut(opts["train_loader"], shuffle=True, seed=1226)
+        opts["valid_loader"] = cut(opts["valid_loader"])
+        opts["train_loader_na"] = cut(opts["train_loader_na"])
+        opts["test_loader"] = [cut(opts["test_loader"][0])]
+    return opts
+
+
+def dropout_densenet_runs(device="cuda", rows=256, micro_steps=2):
+    """Phase 15a: the original DenseNet-40 through ``driver.run`` under the
+    recipe's ``remat`` on ``rows`` rows of each split, with s/epoch,
+    steps/s, mean ``pow_iters``, a profiled step and the peak memory; then
+    ``micro_steps`` steps with ``hvp_micro=2, remat=False``, K1 launching
+    ``2 * (pow_iters + 2)`` times a step.  Returns the epoch's trainer, a
+    batch and K1's launches."""
+    from optwboundeigenval_tpu_torch.ops import pallas_kernels as pk
+    from optwboundeigenval_tpu_torch.train.driver import build_trainer
+
+    cuda = device == "cuda"
+    with tempfile.TemporaryDirectory() as tmp:
+        opts = _original_densenet_opts(device, rows, tmp)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        trainer, batch, launches = run_epochs("original DenseNet-40 (dropout 0.2, remat)", opts,
+                                              device, 1)
+    if trainer.ndim != ORIGINAL_DENSENET_PARAMS or not (trainer.remat and trainer.task.has_dropout):
+        fail(f"original DenseNet-40: {trainer.ndim} parameters, remat {trainer.remat}, "
+             f"dropout {trainer.task.has_dropout}")
+    mem = torch.cuda.max_memory_allocated() if cuda else "not measured"
+    log(f"original DenseNet-40: pow_iters per step {trainer.epoch_pow_iters}, "
+        f"{trainer._dropout_draws} dropout keys drawn, max_memory_allocated {mem} B")
+    if cuda:
+        phase_profile(trainer, batch, "original DenseNet-40 dropout (remat)")
+
+    opts = _original_densenet_opts(device, rows, remat=False, hvp_micro=2)
+    tr, batches = build_trainer(opts), iter(opts["train_loader"])
+    pk.axpy_accumulate.launches = 0
+    for i in range(micro_steps):
+        before = pk.axpy_accumulate.launches
+        m, ms = _timed(lambda: tr.train_step(next(batches)), device)
+        launched = pk.axpy_accumulate.launches - before
+        want = 2 * (m["pow_iters"] + 2)
+        log(f"original DenseNet-40 hvp_micro=2 step {i}: rho {m['rho']:.6g} pow_iters "
+            f"{m['pow_iters']} g {m['g']:.6g} step_ms {1e3 * ms:.1f} K1_launches {launched} "
+            f"(expected {want})")
+        if not (m["step_ok"] and math.isfinite(m["rho"]) and m["g"] > 0):
+            fail(f"original DenseNet-40 hvp_micro=2 step {i}: {m}")
+        if cuda and launched != want:
+            fail(f"original DenseNet-40 hvp_micro=2 step {i}: {launched} K1 launches, "
+                 f"expected {want}")
+    return trainer, batch, launches + pk.axpy_accumulate.launches
+
+
+def dropout_symmetry(trainer, batch):
+    """Within one step's key the Hessian is one symmetric operator: ``u.(H v)``
+    equals ``v.(H u)`` to float32 rounding; across two keys it does not."""
+    from optwboundeigenval_tpu_torch.models import dropout
+    from optwboundeigenval_tpu_torch.ops import curvature
+    from optwboundeigenval_tpu_torch.utils.tree import tree_norm, tree_vdot
+
+    rng = np.random.default_rng(1226)
+    unit = lambda: (lambda t: {k: a / tree_norm(t) for k, a in t.items()})(
+        {k: torch.from_numpy(rng.normal(size=tuple(a.shape))).to(a) for k, a in
+         trainer.params.items()})
+    u, v = unit(), unit()
+    key = dropout.step_key(trainer.seed, 10 ** 6)
+    hvp = lambda k: curvature.linearize_hvp(trainer.task.loss_fn(trainer.model_state, k),
+                                            trainer.params, batch)[1]
+    h1, h2 = hvp(key), hvp(key + 1)
+    uhv, vhu, vh2u = (float(a) for a in (tree_vdot(u, h1(v)), tree_vdot(v, h1(u)),
+                                         tree_vdot(v, h2(u))))
+    same = abs(uhv - vhu) / max(abs(uhv), abs(vhu))
+    cross = abs(uhv - vh2u) / max(abs(uhv), abs(vh2u))
+    log(f"dropout symmetry (float32, unit u and v): u.Hv {uhv:.6g}, v.Hu {vhu:.6g}, relative "
+        f"difference {same:.3e} (bound 1e-4); with the masks of two keys v.H'u {vh2u:.6g}, "
+        f"{cross:.3e}")
+    if not same < 1e-4:
+        fail(f"dropout: H is not symmetric within one key ({same:.3e})")
+
+
+def _fixed_masks(key=7):
+    """An injection of masks drawn once on the CPU, for both devices."""
+    from optwboundeigenval_tpu_torch.models import dropout
+
+    table = {}
+
+    def masks(_key, site, shape):
+        if (site, shape) not in table:
+            table[(site, shape)] = dropout.keep_mask(key, site, torch.empty(shape), 0.8)
+        return table[(site, shape)]
+
+    return masks
+
+
+def _f64_step_card_vs_cpu(label, build, batch, device):
+    """A float64 ``train_step`` from one state on ``device`` and on the CPU
+    (the same dropout masks injected): pow_iters equal, the metrics, the
+    update and the BatchNorm statistics within ``CARD_F64_RTOL``."""
+    from optwboundeigenval_tpu_torch.models import dropout
+
+    masks, steps = _fixed_masks(), {}
+    for dev in (device, "cpu"):
+        tr = _as_f64(build(dev))
+        p0 = {k: t.clone() for k, t in tr.params.items()}
+        with dropout.inject(masks):
+            m, sec = _timed(lambda: tr.train_step(batch), dev)
+        steps[dev] = (m, {k: tr.params[k] - p0[k] for k in p0}, tr.model_state)
+        log(f"{label} float64 step on {dev}: rho {m['rho']:.15g} pow_iters {m['pow_iters']} "
+            f"g {m['g']:.15g} gradf_norm {m['gradf_norm']:.15g}, {sec:.2f} s")
+    (m, d, st), (ref_m, ref_d, ref_s) = steps[device], steps["cpu"]
+    errs = {k: abs(m[k] - ref_m[k]) / abs(ref_m[k]) for k in ("rho", "g", "gradf_norm", "gradg_norm")}
+    errs["update"] = _rel(d, ref_d)
+    if ref_s:
+        errs["bn_stats"] = _rel(st, ref_s)
+    log(f"{label} float64 {device} vs cpu: pow_iters {m['pow_iters']} vs {ref_m['pow_iters']}, "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()) + f" (bound {CARD_F64_RTOL:g})")
+    if m["pow_iters"] != ref_m["pow_iters"] or not max(errs.values()) < CARD_F64_RTOL:
+        fail(f"{label}: the float64 step on {device} and on the CPU disagree")
+
+
+def dropout_card_vs_cpu(device="cuda", batch_size=4):
+    """Phase 15b: a float64 step of the original DenseNet-40 (the recipe's
+    remat) at batch 4, card vs CPU, masks injected."""
+    from optwboundeigenval_tpu_torch.train.driver import build_trainer
+
+    opts = _original_densenet_opts("cpu", batch_size=batch_size)
+    batch = next(iter(opts["train_loader_na"]))
+    _f64_step_card_vs_cpu(
+        "original DenseNet-40", lambda dev: build_trainer(
+            _original_densenet_opts(dev, batch_size=batch_size)), batch, device)
+
+
+def gemm_usps(device="cuda", lax=None, rows=2048):
+    """Phase 15c: ``usps_cnn_mu0_01_K0`` with ``CNNUSPS(conv_impl='gemm')``
+    for one epoch through ``driver.run`` on the first ``rows`` train rows
+    (16 steps; a cut for time only), steps/s and HVPs/s beside the lax
+    run's (phase 7: ``lax`` is its ``(steps/s, mean pow_iters of its last
+    epoch)``), and a float64 step on the card vs the CPU."""
+    from optwboundeigenval_tpu_torch.configs import usps_cnn_mu0_01_K0 as cfg
+    from optwboundeigenval_tpu_torch.data.loaders import ArrayLoader
+    from optwboundeigenval_tpu_torch.models.cnn_usps import CNNUSPS
+    from optwboundeigenval_tpu_torch.train.driver import build_trainer
+
+    with tempfile.TemporaryDirectory() as tmp:
+        opts = cfg.options(model=CNNUSPS(conv_impl="gemm"), max_iter=1, device=device,
+                           log_dir=f"{tmp}/logs", model_dir=f"{tmp}/models")
+        ld = opts["train_loader"]
+        opts["train_loader"] = ArrayLoader(ld.x[:rows], ld.y[:rows], opts["batch_size"],
+                                           shuffle=True, seed=1226)
+        trainer, batch, _ = run_epochs("usps_cnn_mu0_01_K0 gemm", opts, device, 1)
+    g = trainer.timers.totals["G"]
+    rate, hvps = len(trainer.epoch_pow_iters) / g, sum(trainer.epoch_pow_iters) / g
+    lax = "not run" if lax is None else f"{lax[0]:.2f} steps/s, mean pow_iters {lax[1]:.2f}"
+    log(f"usps_cnn_mu0_01_K0: gemm {rate:.2f} steps/s, {hvps:.1f} HVPs/s (mean pow_iters "
+        f"{trainer.mean_pow_iters:.2f}); lax {lax} (phase 7, 2 epochs)")
+    if device == "cuda":
+        phase_profile(trainer, batch, "usps_cnn_mu0_01_K0 gemm")
+    first = next(iter(cfg.options(device="cpu")["train_loader_na"]))
+    _f64_step_card_vs_cpu("usps_cnn gemm", lambda dev: build_trainer(cfg.options(
+        model=CNNUSPS(conv_impl="gemm"), device=dev)), first, device)
+
+
+def legacy_cxr(device="cuda", px=CXR_PX, rows=16, batch=4):
+    """Phase 15d: the legacy loops on ``CXRModel(densenet121)`` at ``px``,
+    batch 4, on ``rows`` NIH stand-in rows (``train_epoch``, ``validate``,
+    ``test`` with finite AUCs), then ``train2_epoch`` on a ``VAE`` over the
+    densenet121 trunk (``outnum`` 14); ms a batch of each."""
+    from optwboundeigenval_tpu_torch.models.backbones import densenet121_features
+    from optwboundeigenval_tpu_torch.models.cxr import CXRModel
+    from optwboundeigenval_tpu_torch.models.vae import VAE
+    from optwboundeigenval_tpu_torch.optim.api import adam
+    from optwboundeigenval_tpu_torch.train import legacy
+    from optwboundeigenval_tpu_torch.train.task import Task, weighted_bce_with_logits
+
+    loaders = cxr_loaders(rows=(rows, rows, rows), px=px, batch=batch)
+    train, valid, test = loaders["train_loader"], loaders["valid_loader"], loaders["test_loader"][0]
+    n = len(train)
+    task = Task(model=CXRModel("densenet121", outnum=14), loss=weighted_bce_with_logits,
+                has_batch_stats=True)
+    params, state = task.init(torch.Generator().manual_seed(1226), torch.device(device))
+    opt = adam(1e-5)
+    gen = torch.Generator(device=device).manual_seed(1226)
+    (params, state, _, loss), t_train = _timed(lambda: legacy.train_epoch(
+        task, params, state, opt, opt.init(params), train, gen), device)
+    (vloss, vacc), t_valid = _timed(lambda: legacy.validate(task, params, state, valid), device)
+    (roc, avgroc, _), t_test = _timed(lambda: legacy.test(task, params, state, test), device)
+    log(f"legacy CXRModel(densenet121) {px} px batch {batch}: train_epoch loss {loss:.6g} "
+        f"{1e3 * t_train / n:.1f} ms a batch; validate loss {vloss:.6g} acc {vacc:.2f} "
+        f"{1e3 * t_valid / len(valid):.1f} ms a batch; test mean AUC {avgroc:.4f} "
+        f"{1e3 * t_test / len(test):.1f} ms a batch")
+    labels = np.concatenate([np.asarray(d["y"]) for d in test])
+    both = np.array([len(np.unique(c[~np.isnan(c)])) == 2 for c in labels.T])
+    log(f"legacy test: AUC per class {np.round(roc, 4).tolist()} ({int((~both).sum())} classes "
+        "with one label value only, whose AUC is NaN)")
+    if not (math.isfinite(loss) and math.isfinite(vloss) and np.isfinite(roc[both]).all()
+            and np.isnan(roc[~both]).all() and both.any()):
+        fail(f"legacy loops: loss {loss}, validate {vloss}, AUCs {roc}")
+    vae = VAE(densenet121_features(), outnum=14)
+    vae.reset_parameters(torch.Generator().manual_seed(1227))
+    vp = {k: p.detach().to(device) for k, p in vae.named_parameters()}
+    vs = {k: b.detach().to(device) for k, b in vae.named_buffers()}
+    before = {k: t.clone() for k, t in vs.items()}
+    (vp, vs, _, vae_loss), t_vae = _timed(lambda: legacy.train2_epoch(
+        vae, vp, vs, opt, opt.init(vp), train, gen, kl_weight=0.1), device)
+    log(f"legacy train2_epoch VAE(densenet121 trunk, outnum 14): loss {vae_loss:.6g} "
+        f"{1e3 * t_vae / n:.1f} ms a batch")
+    if not math.isfinite(vae_loss) or any(not torch.equal(vs[k], t) for k, t in before.items()):
+        fail(f"train2_epoch: loss {vae_loss}, or the BatchNorm statistics moved")
+
+
+def oracle(device="cuda"):
+    """Phase 15e: the curvature oracle in float64 on ``device``."""
+    from optwboundeigenval_tpu_torch import hess_test
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        diffs = hess_test.main([] if device == "cuda" else ["--device", device])
+    log(f"oracle on {device} (float64): grad diff {diffs['grad']:.3e}, HVP diff "
+        f"{diffs['hvp']:.3e}, vGHv diff {diffs['vghv']:.3e} (bounds {hess_test.BOUNDS})")
+
+
+def _legacy_torchvision_key(key):
+    return "module.features." + key.replace("norm1", "norm.1").replace("conv2", "conv.2")
+
+
+def pt_round_trips(tmp, device="cuda", px=CXR_PX):
+    """Phase 15f: ``save_torch_checkpoint`` then ``load_torch_checkpoint``
+    for ``forest``, ``usps_cnn`` and ``densenet3`` (the original
+    DenseNet-40), and a torchvision-keyed densenet121 state dict (``module.``
+    prefixes, ``norm.1``-style keys, ``num_batches_tracked``) into the
+    trunk: the loaded models' outputs must equal the source's on ``device``."""
+    from optwboundeigenval_tpu_torch.models.backbones import densenet121_features
+    from optwboundeigenval_tpu_torch.models.cnn_usps import CNNUSPS
+    from optwboundeigenval_tpu_torch.models.densenet import DenseNet3
+    from optwboundeigenval_tpu_torch.models.mlp_forest import ForestNet
+    from optwboundeigenval_tpu_torch.train.checkpoints import (
+        load_torch_checkpoint,
+        save_torch_checkpoint,
+    )
+
+    g = torch.Generator().manual_seed(1226)
+    rnd = lambda *shape: torch.randn(*shape, generator=g).to(device)
+
+    def randomise(m):
+        m.reset_parameters(g)
+        for name, b in m.named_buffers():  # running statistics away from 0 and 1
+            b.copy_(torch.rand(b.shape, generator=g) + (0.5 if name.endswith("var") else -0.5))
+        return m.to(device)
+
+    cases = (("forest", ForestNet, rnd(8, 54)), ("usps_cnn", CNNUSPS, rnd(8, 16, 16, 1)),
+             ("densenet3", lambda: DenseNet3(**ORIGINAL_DENSENET), rnd(4, 32, 32, 3)))
+    for arch, build, x in cases:
+        src = randomise(build())
+        path = save_torch_checkpoint(src, os.path.join(tmp, f"{arch}.pt"), arch)
+        dst = build().to(device)
+        dst.load_state_dict(load_torch_checkpoint(path, arch))
+        same = torch.equal(dst(x), src(x))
+        log(f".pt round trip {arch}: {os.path.getsize(path)} B, outputs equal {same}")
+        if not same:
+            fail(f".pt round trip {arch}: the outputs differ")
+    src = randomise(densenet121_features())
+    ref = {_legacy_torchvision_key(k): v.cpu() for k, v in src.state_dict().items()}
+    ref.update({_legacy_torchvision_key(k.replace("running_mean", "num_batches_tracked")):
+                torch.tensor(3) for k in src.state_dict() if k.endswith("running_mean")})
+    ref["module.classifier.weight"] = torch.zeros(1000, 1024)
+    torch.save(ref, os.path.join(tmp, "densenet121.pth"))
+    dst = densenet121_features().to(device)
+    dst.load_state_dict(load_torch_checkpoint(os.path.join(tmp, "densenet121.pth"), "densenet121"))
+    x = rnd(2, 3, px, px)
+    same = all(torch.equal(dst(x, train), src(x, train)) for train in (False, True))
+    log(f"torchvision densenet121 state dict ({len(ref)} keys, module. prefixes, norm.1 "
+        f"keys) into the trunk: outputs equal {same} at {px} px")
+    if not same:
+        fail("torchvision densenet121: the loaded trunk's outputs differ")
+
+
+def phase_surface(device="cuda", lax=None):
+    """Phase 15: dropout and the original DenseNet-40 through the spectral
+    step, the gemm CNNUSPS, the legacy loops with the VAE, the oracle and
+    the reference ``.pt`` round trips.  Returns K1's launches."""
+    t0 = time.perf_counter()
+    lap = lambda what: log(f"phase 15: {what} done, {time.perf_counter() - t0:.1f} s in")
+    trainer, batch, launches = dropout_densenet_runs(device)
+    dropout_symmetry(trainer, batch)
+    lap("the original DenseNet-40 runs")
+    dropout_card_vs_cpu(device)
+    lap("float64 dropout step card vs cpu")
+    gemm_usps(device, lax)
+    lap("the gemm CNNUSPS")
+    legacy_cxr(device)
+    lap("the legacy loops and the VAE")
+    oracle(device)
+    with tempfile.TemporaryDirectory() as tmp:
+        pt_round_trips(tmp, device)
+    lap("the oracle and the .pt round trips")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs an NVIDIA GPU")
@@ -2037,11 +2377,13 @@ def main():
     done("phases 4-5")
     phase_card_vs_cpu(trainer, batch)
     done("phase 6")
-    power_hvps = {}
+    power_hvps, rates = {}, {}
     for label, (tr, b, n) in phase_epochs().items():
         phase_profile(tr, b, label)
         launches += n
         power_hvps[label] = tr.mean_pow_iters
+        steps, g = 2 * len(tr.epoch_pow_iters), tr.timers.totals["G"]
+        rates[label] = (steps / g, tr.mean_pow_iters)
     done("phase 7")
     tr, b, n = phase_densenet_epoch()
     phase_profile(tr, b, "cifar10_densenet_mu0_01_K0 epoch trainer")
@@ -2059,6 +2401,8 @@ def main():
     done("phase 13")
     phase_analysis()
     done("phase 14")
+    launches += phase_surface(lax=rates["usps_cnn_mu0_01_K0"])
+    done("phase 15")
     kernels = [{**entry, "launches": launches}]
     log(json.dumps({"kernels": kernels}))
     log(smi)

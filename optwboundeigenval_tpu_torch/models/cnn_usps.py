@@ -6,8 +6,16 @@ names are the reference's (``conv1..3``, ``fc1``, ``fc2``).  The input
 is NHWC ``(B, 16, 16, 1)`` or flat ``(B, 256)``; it is computed in NCHW
 and flattened in torch's CHW order, so ``fc1``'s columns are the
 reference's and ``utils/interop.py`` permutes them to and from the JAX
-model's HWC flatten.  Only ``conv_impl='lax'`` (the library convolution)
-is ported.
+model's HWC flatten.
+
+``conv_impl='gemm'`` (JAX cnn_usps.py:32-72) computes each 3x3 SAME conv
+as im2col patches in the JAX package's ``(kh, kw, in_c)`` order and one
+matmul, and each 2x2 pool as a reshape and ``torch.amax`` over the two
+window axes.  The parameters keep the names and layouts of ``conv1..3``,
+so weights, K-FAC factors and checkpoints cross unchanged.  The forward
+equals ``'lax'``'s, the derivatives do not: at a window of tied maxima
+``amax`` (as the JAX package's reshape-max) shares the gradient evenly,
+where ``F.max_pool2d`` (as ``nn.max_pool``) gives it all to one element.
 """
 
 from __future__ import annotations
@@ -22,11 +30,31 @@ from optwboundeigenval_tpu_torch.models.activations import relu
 from optwboundeigenval_tpu_torch.models.mlp_forest import reset_torch_default
 
 
+def gemm_conv3x3_same(x: torch.Tensor, weight: torch.Tensor,
+                      bias: torch.Tensor) -> torch.Tensor:
+    """3x3 SAME conv of an NCHW batch as im2col and one matmul; the patch
+    columns in ``(kh, kw, in_c)`` order, ``weight`` in torch's OIHW."""
+    b, c, h, w = x.shape
+    xp = F.pad(x, (1, 1, 1, 1))
+    cols = torch.stack([xp[:, :, dy:dy + h, dx:dx + w]
+                        for dy in range(3) for dx in range(3)], dim=1)
+    patches = cols.permute(0, 3, 4, 1, 2).reshape(b * h * w, 9 * c)
+    out = patches @ weight.permute(2, 3, 1, 0).reshape(9 * c, -1)
+    return (out.reshape(b, h, w, -1) + bias).permute(0, 3, 1, 2)
+
+
+def reshape_max_pool2(x: torch.Tensor) -> torch.Tensor:
+    """2x2 stride-2 max pool of an NCHW batch as a reshape and ``amax``."""
+    b, c, h, w = x.shape
+    return x.reshape(b, c, h // 2, 2, w // 2, 2).amax(dim=(3, 5))
+
+
 class CNNUSPS(nn.Module):
     def __init__(self, num_classes: int = 10, conv_impl: str = "lax"):
         super().__init__()
-        if conv_impl != "lax":
-            raise NotImplementedError(f"CNNUSPS(conv_impl={conv_impl!r}) is not ported")
+        if conv_impl not in ("lax", "gemm"):
+            raise ValueError(f"conv_impl must be 'lax' or 'gemm', got {conv_impl!r}")
+        self.conv_impl = conv_impl
         self.conv1 = nn.Conv2d(1, 8, 3, padding=1)
         self.conv2 = nn.Conv2d(8, 16, 3, padding=1)
         self.conv3 = nn.Conv2d(16, 32, 3, padding=1)
@@ -41,6 +69,9 @@ class CNNUSPS(nn.Module):
         x = x.reshape(-1, 16, 16, 1).permute(0, 3, 1, 2)
         x = x.to(self.conv1.weight.dtype).contiguous()
         for conv in (self.conv1, self.conv2, self.conv3):
-            x = F.max_pool2d(relu(conv(x)), 2)
+            if self.conv_impl == "gemm":
+                x = reshape_max_pool2(relu(gemm_conv3x3_same(x, conv.weight, conv.bias)))
+            else:
+                x = F.max_pool2d(relu(conv(x)), 2)
         x = relu(self.fc1(x.flatten(1)))  # (B, 32*2*2) in CHW order
         return self.fc2(x)

@@ -1,11 +1,15 @@
-"""DenseNet-BC for CIFAR (counterpart of ``optwboundeigenval_tpu/models/densenet.py``).
+"""DenseNet for CIFAR (counterpart of ``optwboundeigenval_tpu/models/densenet.py``).
 
-Reference ``DenseNet3`` (densenet.py:70-121): bottleneck dense blocks
-(BN-ReLU-1x1 conv-BN-ReLU-3x3 conv, 4x intermediate width), transition
-blocks with 0.5 compression and 2x2 average pooling, three dense blocks,
-global 8x8 average pool, linear classifier.  Parameter and buffer names
-are the reference's (``block{b}.layer.{i}.bn1``, ``trans{t}``, ``bn1``,
-``fc``), so ``utils/interop.py`` and the JAX package's
+Reference ``DenseNet3`` (densenet.py:70-121): dense blocks of bottleneck
+layers (BN-ReLU-1x1 conv-BN-ReLU-3x3 conv, 4x intermediate width) or,
+with ``bottleneck=False``, of basic layers (BN-ReLU-3x3 conv), transition
+blocks with ``reduction`` compression and 2x2 average pooling, three
+dense blocks, global 8x8 average pool, linear classifier.  With
+``drop_rate > 0`` a dropout layer (``models/dropout.py``) follows every
+conv of a dense layer and the transition's conv, before its pool, at the
+JAX package's sites.  Parameter and buffer names are the reference's
+(``block{b}.layer.{i}.bn1``, ``trans{t}``, ``bn1``, ``fc``), so
+``utils/interop.py`` and the JAX package's
 ``torch_interop.convert_densenet3_state_dict`` map them.
 
 The public input is NHWC ``(B, 32, 32, 3)``, as in the JAX batch; it is
@@ -24,40 +28,59 @@ import torch.nn.functional as F
 from torch import nn
 
 from optwboundeigenval_tpu_torch.models.activations import relu
+from optwboundeigenval_tpu_torch.models.dropout import Dropout, name_sites
 from optwboundeigenval_tpu_torch.models.norm import BatchNorm2d
 
 
 class BottleneckBlock(nn.Module):
-    def __init__(self, in_planes: int, out_planes: int):
+    def __init__(self, in_planes: int, out_planes: int, drop_rate: float = 0.0):
         super().__init__()
         inter = out_planes * 4
         self.bn1 = BatchNorm2d(in_planes)
         self.conv1 = nn.Conv2d(in_planes, inter, 1, bias=False)
+        self.drop1 = Dropout(drop_rate)
         self.bn2 = BatchNorm2d(inter)
         self.conv2 = nn.Conv2d(inter, out_planes, 3, padding=1, bias=False)
+        self.drop2 = Dropout(drop_rate)
 
     def forward(self, x, train=False, stats_out=None):
-        out = self.conv1(relu(self.bn1(x, train, stats_out)))
-        out = self.conv2(relu(self.bn2(out, train, stats_out)))
+        out = self.drop1(self.conv1(relu(self.bn1(x, train, stats_out))), train)
+        out = self.drop2(self.conv2(relu(self.bn2(out, train, stats_out))), train)
+        return torch.cat([x, out], dim=1)
+
+
+class BasicBlock(nn.Module):
+    """BN, ReLU, 3x3 conv (JAX densenet.py:62-77)."""
+
+    def __init__(self, in_planes: int, out_planes: int, drop_rate: float = 0.0):
+        super().__init__()
+        self.bn1 = BatchNorm2d(in_planes)
+        self.conv1 = nn.Conv2d(in_planes, out_planes, 3, padding=1, bias=False)
+        self.drop = Dropout(drop_rate)
+
+    def forward(self, x, train=False, stats_out=None):
+        out = self.drop(self.conv1(relu(self.bn1(x, train, stats_out))), train)
         return torch.cat([x, out], dim=1)
 
 
 class TransitionBlock(nn.Module):
-    def __init__(self, in_planes: int, out_planes: int):
+    def __init__(self, in_planes: int, out_planes: int, drop_rate: float = 0.0):
         super().__init__()
         self.bn1 = BatchNorm2d(in_planes)
         self.conv1 = nn.Conv2d(in_planes, out_planes, 1, bias=False)
+        self.drop = Dropout(drop_rate)
 
     def forward(self, x, train=False, stats_out=None):
-        out = self.conv1(relu(self.bn1(x, train, stats_out)))
+        out = self.drop(self.conv1(relu(self.bn1(x, train, stats_out))), train)
         return F.avg_pool2d(out, 2)
 
 
 class DenseBlock(nn.Module):
-    def __init__(self, nb_layers: int, in_planes: int, growth_rate: int):
+    def __init__(self, nb_layers: int, in_planes: int, growth_rate: int,
+                 block=BottleneckBlock, drop_rate: float = 0.0):
         super().__init__()
         self.layer = nn.ModuleList(
-            BottleneckBlock(in_planes + i * growth_rate, growth_rate)
+            block(in_planes + i * growth_rate, growth_rate, drop_rate)
             for i in range(nb_layers)
         )
 
@@ -68,30 +91,34 @@ class DenseBlock(nn.Module):
 
 
 class DenseNet3(nn.Module):
-    """DenseNet-BC; depth 40, growth 12 is the reference's CIFAR model
-    (params/cifar10_DenseNet_*.py)."""
+    """DenseNet-BC by default; depth 40, growth 12 is the reference's CIFAR
+    model (params/cifar10_DenseNet_*.py).  ``bottleneck=False,
+    reduction=1.0, drop_rate=0.2`` is the original DenseNet of Huang et al.
+    (2017, Table 2, C10 without augmentation)."""
 
     def __init__(self, depth: int = 40, num_classes: int = 10,
                  growth_rate: int = 12, reduction: float = 0.5,
                  bottleneck: bool = True, drop_rate: float = 0.0,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if not bottleneck:
-            raise NotImplementedError("DenseNet3(bottleneck=False) is not ported")
-        if drop_rate > 0:
-            raise NotImplementedError("DenseNet3(drop_rate > 0) is not ported")
+        self.bottleneck = bottleneck
         in_planes = 2 * growth_rate
-        n = int((depth - 4) / 3 / 2)
+        n = (depth - 4) / 3
+        if bottleneck:
+            n = n / 2
+        n = int(n)
+        block = BottleneckBlock if bottleneck else BasicBlock
         self.conv1 = nn.Conv2d(3, in_planes, 3, padding=1, bias=False)
         for b in range(1, 4):
-            setattr(self, f"block{b}", DenseBlock(n, in_planes, growth_rate))
+            setattr(self, f"block{b}", DenseBlock(n, in_planes, growth_rate, block, drop_rate))
             in_planes = int(in_planes + n * growth_rate)
             if b < 3:
                 out_planes = int(math.floor(in_planes * reduction))
-                setattr(self, f"trans{b}", TransitionBlock(in_planes, out_planes))
+                setattr(self, f"trans{b}", TransitionBlock(in_planes, out_planes, drop_rate))
                 in_planes = out_planes
         self.bn1 = BatchNorm2d(in_planes)
         self.fc = nn.Linear(in_planes, num_classes)
+        name_sites(self)
         self.reset_parameters(generator)
 
     @torch.no_grad()

@@ -28,6 +28,9 @@ package) and sum ``scale_m * term_m`` with ``scale_m = sum(w_m) /
 max(sum(w), 1e-12)``, exact for weighted-mean losses.  ``scale_m`` stays
 a device tensor and the running sum goes through the CUDA kernel
 ``ops/pallas_kernels.axpy_accumulate``.
+A dropout loss closes over its step's key (``Task.loss_fn``), so every
+slice is given the same key and, the slices sharing one shape, draws the
+same masks, as the JAX package's micro-batched passes do.
 """
 
 from __future__ import annotations

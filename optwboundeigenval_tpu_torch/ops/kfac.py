@@ -73,10 +73,12 @@ def sample_fisher_targets(task, params: Tree, model_state: Tree, batch,
 
 
 def capture(task, params: Tree, model_state: Tree, batch,
-            targets: Optional[torch.Tensor] = None):
+            targets: Optional[torch.Tensor] = None, key: Optional[int] = None):
     """One train-mode forward and backward: ``(loss, {layer name:
     LayerCapture})``.  ``targets`` replaces ``batch["y"]`` in the loss
-    (sampled targets); the BatchNorm running statistics do not move."""
+    (sampled targets); the BatchNorm running statistics do not move; a
+    dropout task's masks come from ``key``, the capture's own (JAX
+    kfac.py:131, 159)."""
     layers = factored_layers(task.model)
     acts: Tree = {}
     taps: Tree = {}
@@ -93,7 +95,7 @@ def capture(task, params: Tree, model_state: Tree, batch,
     try:
         with torch.enable_grad():
             out = task._apply({k: p.detach() for k, p in params.items()},
-                              model_state, batch["x"], True)
+                              model_state, batch["x"], True, key=key)
             y = batch["y"] if targets is None else targets
             loss = task.loss(out, y, batch.get("w"))
             names = list(taps)
@@ -252,14 +254,16 @@ def apply_to_tree(factors: Factors, tree: Tree, damping: float = 0.0) -> Tree:
 def fit_factors(task, params: Tree, model_state: Tree, batch,
                 generator: Optional[torch.Generator] = None, *,
                 prev: Optional[Factors] = None, stat_decay: float = 0.95,
-                sample_targets: bool = True, targets=None) -> Factors:
+                sample_targets: bool = True, targets=None,
+                key: Optional[int] = None) -> Factors:
     """The LOBPCG refresh (init_kfac, opt.py:362-382; kfac.py:461-479):
-    capture on this batch, with targets sampled from ``generator`` under
-    ``sample_targets`` (or ``targets`` as given), EMA-update ``prev`` (or
-    identity) and recompute the inverses."""
+    capture on this batch (a dropout task's masks from ``key``), with
+    targets sampled from ``generator`` under ``sample_targets`` (or
+    ``targets`` as given), EMA-update ``prev`` (or identity) and
+    recompute the inverses."""
     if targets is None and sample_targets:
         targets = sample_fisher_targets(task, params, model_state, batch, generator)
-    _, caps = capture(task, params, model_state, batch, targets)
+    _, caps = capture(task, params, model_state, batch, targets, key)
     factors = init_factors(task.model, params) if prev is None else prev
     return compute_inverses(update_factors(factors, caps, params, stat_decay))
 

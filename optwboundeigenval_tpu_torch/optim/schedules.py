@@ -1,11 +1,13 @@
 """Host-side learning-rate schedulers with torch-scheduler semantics
 (counterpart of ``optwboundeigenval_tpu/optim/schedules.py``:
-``LambdaLR`` and ``ReduceLROnPlateau``).  Each epoch the trainer calls
+``LambdaLR``, ``ExponentialLR``, ``CosineAnnealingLR`` and
+``ReduceLROnPlateau``).  Each epoch the trainer calls
 ``step(metric)`` with the epoch's train loss ``f`` (opt.py:760-763) and
 writes the returned lr into the optimizer state."""
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Optional
 
 
@@ -21,6 +23,38 @@ class LambdaLR:
     def step(self, metric: Optional[float] = None) -> float:
         self.epoch += 1
         self.lr = self.base_lr * float(self.fn(self.epoch))
+        return self.lr
+
+
+class ExponentialLR:
+    """``lr = base_lr * gamma ** epoch`` (JAX schedules.py:44-50)."""
+
+    def __init__(self, base_lr: float, gamma: float):
+        self.base_lr = self.lr = float(base_lr)
+        self.gamma = gamma
+        self.epoch = 0
+
+    def step(self, metric: Optional[float] = None) -> float:
+        self.epoch += 1
+        self.lr = self.base_lr * self.gamma ** self.epoch
+        return self.lr
+
+
+class CosineAnnealingLR:
+    """``lr = eta_min + (base_lr - eta_min) (1 + cos(pi epoch / T_max)) / 2``
+    (JAX schedules.py:53-70), with no clamp at ``T_max``: past it the lr
+    rises again, as torch's closed form does."""
+
+    def __init__(self, base_lr: float, T_max: int, eta_min: float = 0.0):
+        self.base_lr = self.lr = float(base_lr)
+        self.T_max = T_max
+        self.eta_min = eta_min
+        self.epoch = 0
+
+    def step(self, metric: Optional[float] = None) -> float:
+        self.epoch += 1
+        self.lr = (self.eta_min + (self.base_lr - self.eta_min)
+                   * (1 + math.cos(math.pi * self.epoch / self.T_max)) / 2)
         return self.lr
 
 

@@ -97,13 +97,14 @@ class AsymmetricValleyTrainer(SpectralTrainer):
         for data in loader:
             with self.timers("G"):
                 batch = self.put_batch(data)
-                loss_fn = self._loss_fn(self.model_state)
+                key = self._dropout_key()
+                loss_fn = self._loss_fn(self.model_state, key)
                 loss, grads = curvature.value_and_grad(loss_fn, self.params, batch)
                 self.params, self.opt_state = self.optimizer.step(
                     grads, self.opt_state, self.params,
                     grad_fn=lambda p: curvature.value_and_grad(loss_fn, p, batch),
                     rng=self.generator)
-                self.model_state = self._advance_stats(self.params, self.model_state, batch)
+                self.model_state = self._advance_stats(self.params, self.model_state, batch, key)
                 bw = float(np.sum(data["w"]))
                 loss_sum += float(loss) * bw
             n_sum += bw

@@ -1,11 +1,12 @@
-"""Checkpoints (counterpart of ``optwboundeigenval_tpu/train/checkpoints.py``;
-the format only).
+"""Checkpoints (counterpart of ``optwboundeigenval_tpu/train/checkpoints.py``).
 
 A checkpoint is a dict of tensors, numbers and nested dicts written with
 ``torch.save`` (tensors moved to the CPU first, so a file written on the
 card loads anywhere) and read with ``torch.load(weights_only=True)``.
 ``restore_like`` puts a loaded payload back on the device and in the
-dtype of a template of the same structure.
+dtype of a template of the same structure.  ``load_torch_checkpoint`` and
+``save_torch_checkpoint`` read and write the reference's own ``.pt``
+state dicts (JAX checkpoints.py:55-122).
 """
 
 from __future__ import annotations
@@ -57,3 +58,29 @@ def restore_like(template, payload):
     if isinstance(template, torch.Tensor):
         return payload.to(device=template.device, dtype=template.dtype)
     return type(template)(payload)
+
+
+def load_torch_checkpoint(path: str, arch: str):
+    """A reference checkpoint (a ``.pt`` state dict, maybe nested under
+    ``state_dict``, with ``module.``/``encoder.`` prefixes or legacy dotted
+    keys; opt.py:765-769, 1041-1059) or a torchvision state dict -> the
+    port's state dict for ``arch`` (``utils/torch_interop.from_reference``:
+    ``forest``, ``usps_cnn``, ``densenet3`` or a trunk such as
+    ``densenet121``), CPU tensors to load with ``model.load_state_dict``."""
+    from optwboundeigenval_tpu_torch.utils import torch_interop
+
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if hasattr(sd, "state_dict"):
+        sd = sd.state_dict()
+    return torch_interop.from_reference(sd, arch)
+
+
+def save_torch_checkpoint(model, path: str, arch: str) -> str:
+    """Write a port model (or its ``{**params, **model_state}``) as a plain
+    ``.pt`` state dict that the reference's model of ``arch`` (``forest``,
+    ``usps_cnn`` or ``densenet3``) loads; returns ``path``."""
+    from optwboundeigenval_tpu_torch.utils import torch_interop
+
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    torch.save(torch_interop.to_reference(model, arch), path)
+    return path

@@ -32,7 +32,9 @@ own keywords (``swa_start``, ``sgd_start``, ...) beside the trainer's
 (JAX driver.py:56-69).  An option that is neither a trainer argument,
 an Asymmetric Valley argument nor one the driver reads raises, so a
 setting the port does not implement is never dropped without a word.
-The JAX driver's ``device_data`` is not ported and raises when set.
+``has_dropout=True`` builds a dropout ``Task``: the trainer draws one
+dropout key a step (``models/dropout.py``).  The JAX driver's
+``device_data`` is not ported and raises when set.
 """
 
 from __future__ import annotations

@@ -7,15 +7,21 @@ dicts ``{name: tensor}`` and go in through
 ``torch.func.functional_call``, so the same functions can be
 differentiated two and three times.
 
-* ``loss_fn(model_state)(params, batch)`` — train-mode loss with the
-  BatchNorm running statistics FROZEN: the function whose Hessian is
+* ``loss_fn(model_state, key)(params, batch)`` — train-mode loss with
+  the BatchNorm running statistics FROZEN: the function whose Hessian is
   regularized (the reference computes HVPs in train mode, opt.py:421).
-* ``train_loss(params, model_state, batch)`` — ``(loss, new_state)``:
-  the running statistics update here, functionally, and only here;
-  ``batch_stats`` gives the batch's own statistics (mean and unbiased
-  variance per BatchNorm) under the buffers' names.
-* ``predict(params, model_state, batch)`` — eval-mode outputs;
-  ``eval_loss`` adds the loss.
+* ``train_loss(params, model_state, batch, key)`` — ``(loss,
+  new_state)``: the running statistics update here, functionally, and
+  only here; ``batch_stats`` gives the batch's own statistics (mean and
+  unbiased variance per BatchNorm) under the buffers' names.
+* ``predict(params, model_state, batch)`` — eval-mode outputs, no
+  dropout; ``eval_loss`` adds the loss.
+
+With ``has_dropout`` the train-mode passes run under the dropout ``key``
+(``models/dropout.py``): every pass given one key draws the same masks,
+so the loss a step's curvature passes differentiate is one function, as
+the JAX package's ``loss_fn(model_state, rng)`` is.  Without it the key
+is ignored, and a model with active dropout raises in train mode.
 
 Batches are dicts ``{"x", "y", "w"}``; ``w`` weights each example and
 carries ``w = 0`` on padded rows, so every loss is a weighted mean.
@@ -30,6 +36,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.func import functional_call
+
+from optwboundeigenval_tpu_torch.models import dropout
 
 Tree = Dict[str, torch.Tensor]
 
@@ -123,10 +131,6 @@ class Task:
     has_batch_stats: bool = False
     has_dropout: bool = False
 
-    def __post_init__(self):
-        if self.has_dropout:
-            raise NotImplementedError("dropout models are not ported")
-
     def init(self, generator: Optional[torch.Generator],
              device) -> tuple[Tree, Tree]:
         """Fresh ``(params, model_state)`` on ``device``, drawn from
@@ -138,43 +142,44 @@ class Task:
                  for k, b in self.model.named_buffers()}
         return params, state
 
-    def _apply(self, params, model_state, x, train, stats_out=None):
-        return functional_call(self.model, (params, model_state), (x,),
-                               {"train": train, "stats_out": stats_out})
+    def _apply(self, params, model_state, x, train, stats_out=None, key=None):
+        with dropout.keyed(key if self.has_dropout else None):
+            return functional_call(self.model, (params, model_state), (x,),
+                                   {"train": train, "stats_out": stats_out})
 
-    def loss_fn(self, model_state: Tree) -> Callable:
+    def loss_fn(self, model_state: Tree, key: Optional[int] = None) -> Callable:
         """``f(params, batch) -> scalar`` in train mode with frozen
-        running statistics — the function the curvature ops
-        differentiate."""
+        running statistics and the dropout masks of ``key`` — the function
+        the curvature ops differentiate."""
 
         def f(params, batch):
-            out = self._apply(params, model_state, batch["x"], True)
+            out = self._apply(params, model_state, batch["x"], True, key=key)
             return self.loss(out, batch["y"], batch.get("w"))
 
         return f
 
-    def _batch_stats(self, params, model_state, batch):
+    def _batch_stats(self, params, model_state, batch, key=None):
         """``(outputs, [(buffer name, BatchNorm module, batch statistic)])``
         of one train-mode forward."""
         stats: dict = {}
         out = self._apply(params, model_state, batch["x"], True,
-                          stats if self.has_batch_stats else None)
+                          stats if self.has_batch_stats else None, key)
         found = [(f"{name}.running_{k}", m, stat)
                  for name, m in self.model.named_modules() if m in stats
                  for k, stat in zip(("mean", "var"), stats[m])]
         return out, found
 
     @torch.no_grad()
-    def batch_stats(self, params, model_state, batch) -> Tree:
+    def batch_stats(self, params, model_state, batch, key=None) -> Tree:
         """The batch's BatchNorm statistics (mean, unbiased variance) under
         the running buffers' names."""
-        return {k: stat for k, _, stat in self._batch_stats(params, model_state, batch)[1]}
+        return {k: stat for k, _, stat in self._batch_stats(params, model_state, batch, key)[1]}
 
     @torch.no_grad()
-    def train_loss(self, params, model_state, batch):
+    def train_loss(self, params, model_state, batch, key=None):
         """``(loss, new_model_state)``; BN running statistics update
         here and only here, ``(1 - m) * running + m * batch``."""
-        out, found = self._batch_stats(params, model_state, batch)
+        out, found = self._batch_stats(params, model_state, batch, key)
         new_state = dict(model_state)
         for k, module, stat in found:
             m = module.momentum

@@ -23,6 +23,14 @@ A step (``_step_body``, reference ``iter()`` body, opt.py:580-763):
    PRE-step parameters (the reference advances them in comp_rho's
    forward, before the step mutates the weights).
 
+A dropout task (``Task(has_dropout=True)``) draws one dropout key a step
+(``_dropout_key``, a stream of its own from the seed): the gradient,
+every HVP, the vGHv pass, the BatchNorm update and the SAM and
+Entropy-SGD closures all see its masks (JAX trainer lines 517-518, 633,
+654); a K-FAC capture, the epoch-end ``rho`` and each audit batch draw
+fresh keys, and the optimizer's own randomness stays on the trainer's
+generator.
+
 An epoch (``iter_epoch``) runs the steps, recomputes ``f`` over the
 train set in eval mode and ``rho`` on one random batch, and sets
 ``h = f + mu * g``; ``train`` loops epochs with the reference's TSV log,
@@ -48,6 +56,7 @@ import numpy as np
 import torch
 
 from optwboundeigenval_tpu_torch.data.loaders import ArrayLoader
+from optwboundeigenval_tpu_torch.models import dropout
 from optwboundeigenval_tpu_torch.ops import curvature, eigen, kfac, spectral
 from optwboundeigenval_tpu_torch.optim.api import Optimizer
 from optwboundeigenval_tpu_torch.train import checkpoints
@@ -270,6 +279,7 @@ class SpectralTrainer:
         self.seed = seed
         self.generator = torch.Generator().manual_seed(seed)
         self._np_rng = np.random.default_rng(seed)
+        self._dropout_draws = 0  # dropout keys drawn so far (_dropout_key)
         self.log_dir = log_dir
         self.model_dir = model_dir
 
@@ -335,8 +345,16 @@ class SpectralTrainer:
     # ------------------------------------------------------------------
     # one step
     # ------------------------------------------------------------------
-    def _loss_fn(self, model_state):
-        return self.task.loss_fn(model_state)
+    def _loss_fn(self, model_state, key=None):
+        return self.task.loss_fn(model_state, key)
+
+    def _dropout_key(self) -> Optional[int]:
+        """The next key of the run's dropout stream; None without dropout,
+        so a task without it draws nothing."""
+        if not self.task.has_dropout:
+            return None
+        self._dropout_draws += 1
+        return dropout.step_key(self.seed, self._dropout_draws)
 
     def _linearize(self, loss_fn, params, batch):
         """``(grad f, hvp_fn)`` on the full batch: the kept gradient graph,
@@ -348,10 +366,11 @@ class SpectralTrainer:
         return curvature.linearize_hvp(loss_fn, params, batch)
 
     def _step_body(self, params, model_state, opt_state, v, batch, mu,
-                   precond_state=None):
-        """Pure per-batch step: returns ``(params, model_state, opt_state,
-        v, metrics)`` with the metrics as device tensors."""
-        loss_fn = self._loss_fn(model_state)
+                   precond_state=None, key=None):
+        """Pure per-batch step under the dropout ``key``: returns
+        ``(params, model_state, opt_state, v, metrics)`` with the metrics as
+        device tensors."""
+        loss_fn = self._loss_fn(model_state, key)
         if self.hvp_micro > 1:
             # memory-bounded path: O(B / micro) activations per pass, and
             # nothing kept between passes
@@ -395,22 +414,23 @@ class SpectralTrainer:
             metrics["opt_mf"] = new_opt_state["mf"]
             metrics["opt_merr"] = new_opt_state["merr"]
         # BN running statistics at the PRE-step params (opt.py:180-186, 421)
-        new_model_state = self._advance_stats(params, model_state, batch)
+        new_model_state = self._advance_stats(params, model_state, batch, key)
         return new_params, new_model_state, new_opt_state, new_v, metrics
 
     def _opt_kwargs(self, loss_fn, model_state, batch):
         """The optimizer protocol's keywords for this batch (JAX trainer
         lines 589-635): the plain-loss ``grad_fn``, the trainer's
         generator, K-FAC's ``stats_fn`` (a capture at the parameters it is
-        given, with sampled targets under the optimizer's ``kfac_rand``)
-        and Entropy-SGD's ``err_fn``."""
+        given, with sampled targets under the optimizer's ``kfac_rand`` and
+        masks of a key of its own) and Entropy-SGD's ``err_fn``."""
         kw = {"grad_fn": lambda p: curvature.value_and_grad(loss_fn, p, batch),
               "rng": self.generator}
         if self.optimizer.needs_stats:
             def stats_fn(p, rng):
                 targets = (kfac.sample_fisher_targets(self.task, p, model_state, batch, rng)
                            if self.optimizer.kfac_rand else None)
-                return kfac.capture(self.task, p, model_state, batch, targets)[1]
+                return kfac.capture(self.task, p, model_state, batch, targets,
+                                    key=self._dropout_key())[1]
             kw["stats_fn"] = stats_fn
         if self.optimizer.wants_err:
             kw["err_fn"] = lambda p: self._closure_err(p, model_state, batch)
@@ -461,15 +481,15 @@ class SpectralTrainer:
             prev = self._precond_state if self.kfac_ema else None
             self._precond_state = kfac.fit_factors(
                 self.task, self.params, self.model_state, batch, self.generator,
-                prev=prev, sample_targets=self.kfac_rand)
+                prev=prev, sample_targets=self.kfac_rand, key=self._dropout_key())
             self._kfac_iter = 1
         else:
             self._kfac_iter += 1
 
-    def _advance_stats(self, params, model_state, batch):
+    def _advance_stats(self, params, model_state, batch, key=None):
         if not self.task.has_batch_stats:
             return model_state
-        return self.task.train_loss(params, model_state, batch)[1]
+        return self.task.train_loss(params, model_state, batch, key)[1]
 
     def train_step(self, batch: Dict[str, Any], mu: Optional[float] = None,
                    fetch: bool = True) -> Dict[str, Any]:
@@ -486,9 +506,10 @@ class SpectralTrainer:
         if mu is None:
             mu = self._mu_now()
         dev_batch = self.put_batch(batch)
+        key = self._dropout_key()
         self._refresh_precond(dev_batch)
         out = self._step_body(self.params, self.model_state, self.opt_state,
-                              self.v, dev_batch, float(mu), self._precond_state)
+                              self.v, dev_batch, float(mu), self._precond_state, key)
         new_params, new_model_state, new_opt_state, new_v, metrics = out
         if not fetch:
             self.params, self.model_state = new_params, new_model_state
@@ -515,11 +536,13 @@ class SpectralTrainer:
         """comp_rho without an optimizer step (epoch-end ``g``, rho_test):
         the full-batch cached linearization even when ``hvp_micro > 1``,
         then the BN running statistics advance, as the reference's
-        train-mode forward does (opt.py:421, 882-910).  Returns ``(eig,
+        train-mode forward does (opt.py:421, 882-910), under a fresh
+        dropout key (JAX trainer lines 1025-1034).  Returns ``(eig,
         new_model_state)``."""
-        _, hvp_fn = self._linearize(self._loss_fn(self.model_state), self.params, batch)
+        key = self._dropout_key()
+        _, hvp_fn = self._linearize(self._loss_fn(self.model_state, key), self.params, batch)
         eig = self._eig(hvp_fn, self._start(self.v), self._precond_state)
-        return eig, self._advance_stats(self.params, self.model_state, batch)
+        return eig, self._advance_stats(self.params, self.model_state, batch, key)
 
     # ------------------------------------------------------------------
     # epoch loop (reference iter(), opt.py:580-763)
@@ -849,7 +872,7 @@ class SpectralTrainer:
         for j, data in enumerate(loader):
             batch = self.put_batch(data)
             t0 = time.perf_counter()
-            _, hvp_fn = self._linearize(self._loss_fn(self.model_state),
+            _, hvp_fn = self._linearize(self._loss_fn(self.model_state, self._dropout_key()),
                                         self.params, batch)
             eig = self._eig(hvp_fn, tree_uniform_like(self.params))
             rho, norm, res = torch.stack(
@@ -883,7 +906,7 @@ class SpectralTrainer:
         m_lz = int(lanczos_m) or max(4 * k, 16)
         rows = []
         for j, data in enumerate(loader):
-            _, hvp_fn = self._linearize(self._loss_fn(self.model_state),
+            _, hvp_fn = self._linearize(self._loss_fn(self.model_state, self._dropout_key()),
                                         self.params, self.put_batch(data))
             u = tree_uniform_like(self.params)
             start = None if starts is None else starts[j]
@@ -918,9 +941,9 @@ class SpectralTrainer:
 
     def save_full(self, tail: str = CKPT_FULL):
         """Everything an exact resume needs: ``save``'s payload plus the
-        optimizer state, the best-model tracking, the CoV window and the
-        LOBPCG preconditioner with its refit counter (the JAX package's
-        checkpoint leaves those two out)."""
+        optimizer state, the best-model tracking, the CoV window, the
+        LOBPCG preconditioner with its refit counter and the dropout keys
+        drawn (the JAX package's checkpoint leaves the first two out)."""
         checkpoints.save_checkpoint(
             os.path.join(self.model_dir, self.header2 + tail),
             {"params": self.params, "model_state": self.model_state,
@@ -928,7 +951,8 @@ class SpectralTrainer:
              "best": [self.best_val_acc, self.best_h, self.best_rho,
                       float(self.best_iter)],
              "h_hist": list(self._h_hist),
-             "precond_state": self._precond_state, "kfac_iter": self._kfac_iter})
+             "precond_state": self._precond_state, "kfac_iter": self._kfac_iter,
+             "dropout_draws": self._dropout_draws})
 
     def resume(self, fname: Optional[str] = None):
         """Restore a ``save_full`` checkpoint; the next ``train()``
@@ -947,6 +971,7 @@ class SpectralTrainer:
         # (a checkpoint written before LOBPCG was ported has neither)
         self._precond_state = checkpoints.to_device(payload.get("precond_state"), self.device)
         self._kfac_iter = int(payload.get("kfac_iter", self.kfac_batch))
+        self._dropout_draws = int(payload.get("dropout_draws", 0))
         self._resume_epoch = self.i + 1
 
     def model_load(self, fname: Optional[str] = None):

@@ -4,7 +4,8 @@ dicts, as numpy (no JAX import here).
 The port's DenseNet3 uses the reference torch names, so the map is the
 one of ``optwboundeigenval_tpu/utils/torch_interop.py``
 ``convert_densenet3_state_dict``: ``block{b+1}.layer.{i}`` is
-``BottleneckBlock_{b*n+i}``, ``trans{t}`` is ``TransitionBlock_{t-1}``,
+``BottleneckBlock_{b*n+i}`` (``BasicBlock_{b*n+i}`` without bottleneck,
+its ``bn1``/``conv1`` only), ``trans{t}`` is ``TransitionBlock_{t-1}``,
 the final ``bn1`` is ``BatchNorm_0`` and ``fc`` is ``fc``.  Convs are
 OIHW here and HWIO there; the classifier is ``(out, in)`` here and
 ``(in, out)`` there.  The final pool leaves a 1x1 map, so the flatten
@@ -69,18 +70,21 @@ def _a(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
 
 
-def _densenet3_pairs(n_blocks: int) -> Iterator[Tuple[str, Tuple[str, ...], str]]:
+def _densenet3_pairs(n_blocks: int, bottleneck: bool = True
+                     ) -> Iterator[Tuple[str, Tuple[str, ...], str]]:
     """``(port prefix, flax path, kind)`` for every layer of a DenseNet3
-    whose dense blocks hold ``n_blocks`` bottleneck layers each."""
+    whose dense blocks hold ``n_blocks`` bottleneck (or basic) layers each."""
+    cls = "BottleneckBlock" if bottleneck else "BasicBlock"
     yield "conv1", ("conv1",), "conv"
     for b in range(3):
         for i in range(n_blocks):
             t = f"block{b + 1}.layer.{i}"
-            f = f"BottleneckBlock_{b * n_blocks + i}"
+            f = f"{cls}_{b * n_blocks + i}"
             yield f"{t}.bn1", (f, "BatchNorm_0"), "bn"
             yield f"{t}.conv1", (f, "Conv_0"), "conv"
-            yield f"{t}.bn2", (f, "BatchNorm_1"), "bn"
-            yield f"{t}.conv2", (f, "Conv_1"), "conv"
+            if bottleneck:
+                yield f"{t}.bn2", (f, "BatchNorm_1"), "bn"
+                yield f"{t}.conv2", (f, "Conv_1"), "conv"
         if b < 2:
             f = f"TransitionBlock_{b}"
             yield f"trans{b + 1}.bn1", (f, "BatchNorm_0"), "bn"
@@ -151,17 +155,19 @@ def _pairs_to_jax(pairs, params: Tree, model_state: Tree):
 
 def densenet3_from_jax(params, batch_stats) -> Tuple[Tree, Tree]:
     """flax ``(params, batch_stats)`` of ``models.DenseNet3`` (numpy or
-    array leaves) -> the port's ``(params, model_state)`` as CPU tensors
-    of the same dtype."""
-    n_blocks = sum(k.startswith("BottleneckBlock_") for k in params) // 3
-    return _pairs_from_jax(_densenet3_pairs(n_blocks), params, batch_stats)
+    array leaves; bottleneck or basic layers) -> the port's ``(params,
+    model_state)`` as CPU tensors of the same dtype."""
+    basic = sum(k.startswith("BasicBlock_") for k in params)
+    n_blocks = (basic or sum(k.startswith("BottleneckBlock_") for k in params)) // 3
+    return _pairs_from_jax(_densenet3_pairs(n_blocks, not basic), params, batch_stats)
 
 
 def densenet3_to_jax(params: Tree, model_state: Tree):
     """The port's ``(params, model_state)`` -> flax ``(params,
     batch_stats)`` as nested dicts of numpy arrays."""
-    n_blocks = sum(k.endswith(".conv2.weight") for k in params) // 3
-    return _pairs_to_jax(_densenet3_pairs(n_blocks), params, model_state)
+    n_blocks = sum(k.startswith("block") and k.endswith(".bn1.weight") for k in params) // 3
+    bottleneck = any(k.endswith(".conv2.weight") for k in params)
+    return _pairs_to_jax(_densenet3_pairs(n_blocks, bottleneck), params, model_state)
 
 
 class _Names:
@@ -258,16 +264,28 @@ def model_pairs(model: nn.Module) -> List:
     """``(port prefix, flax path, kind)`` of every layer of ``model``: a
     ``CXRModel`` (or any module with a trunk ``features`` and a
     ``TransitHead`` ``head``), a ``DenseNet121Sigmoid``, a bare trunk, a
-    ``DenseNet3`` or one of the GANs."""
+    ``DenseNet3``, one of the GANs, a ``VAE`` (its trunk or ``ForestNet``
+    under the flax scope ``encoder``) or a ``LogisticRegression``."""
     from optwboundeigenval_tpu_torch.models import gan
     from optwboundeigenval_tpu_torch.models.cxr import DenseNet121Sigmoid, TransitHead
     from optwboundeigenval_tpu_torch.models.densenet import DenseNet3
+    from optwboundeigenval_tpu_torch.models.logistic import LogisticRegression
+    from optwboundeigenval_tpu_torch.models.vae import VAE
 
     if isinstance(model, (gan.MLPGenerator, gan.MLPDiscriminator, gan.DCGenerator,
                           gan.DCDiscriminator)):
         return _gan_pairs(model)
+    if isinstance(model, VAE):
+        from optwboundeigenval_tpu_torch.models.mlp_forest import ForestNet
+
+        enc = ([(f"encoder.{n}", ("encoder", n), "dense") for n in ("fc1", "fc2", "fc3")]
+               if isinstance(model.encoder, ForestNet)
+               else _trunk_pairs(model.encoder, "encoder.", ("encoder",)))
+        return enc + [(name, (name,), "dense") for name in ("mu_fc", "logv_fc", "de1", "de2")]
+    if isinstance(model, LogisticRegression):
+        return [("linear", ("Dense_0",), "dense")]
     if isinstance(model, DenseNet3):
-        return list(_densenet3_pairs(len(model.block1.layer)))
+        return list(_densenet3_pairs(len(model.block1.layer), model.bottleneck))
     if isinstance(model, DenseNet121Sigmoid):
         return (_trunk_pairs(model.features, "features.", ("DenseNetFeatures_0",))
                 + [("classifier", ("classifier",), "dense")])
@@ -415,10 +433,11 @@ def _layer_names(flax_paths, model=None) -> Dict[str, str]:
         names = dict(_CNNUSPS_CONVS)
         names.update({"Dense_0": "fc1", "Dense_1": "fc2"})
         return names
-    if any(p.startswith("BottleneckBlock_") for p in paths):
-        n_blocks = sum(p.startswith("BottleneckBlock_") for p in paths) // 6
-        return {"/".join(path): name for name, path, kind in _densenet3_pairs(n_blocks)
-                if kind != "bn"}
+    for cls, per_layer in (("BottleneckBlock_", 2), ("BasicBlock_", 1)):
+        if any(p.startswith(cls) for p in paths):
+            n_blocks = sum(p.startswith(cls) for p in paths) // (3 * per_layer)
+            return {"/".join(path): name for name, path, kind
+                    in _densenet3_pairs(n_blocks, per_layer == 2) if kind != "bn"}
     return {p: p for p in paths}  # ForestNet
 
 

@@ -367,3 +367,162 @@ def test_distances_and_meta_classifier_card_vs_cpu(cuda):
     got, want = fit_meta_classifier(maps, labels), fit_meta_classifier(maps, labels, device="cpu")
     for k in ("w", "b"):
         np.testing.assert_allclose(got[k], want[k], rtol=1e-4, atol=1e-4 * np.abs(want[k]).max())
+
+
+# ---- dropout, the gemm CNN, the legacy loops, the oracle, reference .pt ------------
+
+
+def _dropout_trainer(device, hvp_micro=0, **kw):
+    from optwboundeigenval_tpu_torch.utils.tree import tree_uniform_like
+
+    model = DenseNet3(depth=7, growth_rate=4, bottleneck=False, drop_rate=0.2, reduction=1.0)
+    tr = SpectralTrainer(Task(model=model, has_batch_stats=True, has_dropout=True),
+                         sgd(0.1, momentum=0.9), mu=0.01, K=0.0, pow_iter_eps=0.05,
+                         max_pow_iter=20, hvp_micro=hvp_micro, device=device, **kw)
+    tr.init_state()
+    tr.params, tr.model_state = _f64(tr.params, device), _f64(tr.model_state, device)
+    tr.opt_state = tr.optimizer.init(tr.params)
+    tr.v = tree_uniform_like(tr.params)
+    return tr
+
+
+def _cpu_masks():
+    """Masks drawn once on the CPU, injected on both devices."""
+    from optwboundeigenval_tpu_torch.models import dropout
+
+    table = {}
+    return lambda _key, site, shape: table.setdefault(
+        (site, shape), dropout.keep_mask(3, site, torch.empty(shape), 0.8))
+
+
+def _batch8(seed=0):
+    rng = np.random.default_rng(seed)
+    return {"x": rng.normal(size=(8, 32, 32, 3)), "y": rng.integers(0, 10, 8).astype(np.int32),
+            "w": np.ones(8, np.float32)}
+
+
+@pytest.mark.parametrize("hvp_micro,remat", [(0, True), (2, False)])
+def test_dropout_step_card_vs_cpu(cuda, hvp_micro, remat):
+    """A float64 step of a dropout DenseNet3 on the card and on the CPU with
+    the same masks injected; through K1 when micro-batched."""
+    from optwboundeigenval_tpu_torch.models import dropout
+
+    masks, out = _cpu_masks(), {}
+    for dev in ("cpu", "cuda"):
+        tr = _dropout_trainer(dev, hvp_micro, remat=remat)
+        before = pk.axpy_accumulate.launches
+        with dropout.inject(masks):
+            m = tr.train_step(_batch8())
+        if dev == "cuda" and hvp_micro:
+            assert pk.axpy_accumulate.launches - before == 2 * (m["pow_iters"] + 2)
+        out[dev] = (m, _f64(tr.params, "cpu"))
+    (mc, pc), (mg, pg) = out["cpu"], out["cuda"]
+    assert mg["step_ok"] and mg["pow_iters"] == mc["pow_iters"]
+    for k in ("rho", "g", "gradf_norm", "gradg_norm"):
+        assert abs(mg[k] - mc[k]) <= 1e-9 * abs(mc[k]), k
+    assert float(tree_norm(tree_sub(pg, pc)) / tree_norm(pc)) < 1e-9
+
+
+def test_dropout_masks_are_drawn_on_the_card_and_h_is_symmetric(cuda):
+    """Without injection the masks come from a generator on the card; one
+    key gives one symmetric H (``u.Hv == v.Hu`` to float32 rounding)."""
+    from optwboundeigenval_tpu_torch.models import dropout
+    from optwboundeigenval_tpu_torch.utils.tree import tree_vdot
+
+    x = torch.ones(64, 64, device=cuda)
+    assert dropout.keep_mask(5, "s", x, 0.8).device.type == "cuda"
+    assert torch.equal(dropout.keep_mask(5, "s", x, 0.8), dropout.keep_mask(5, "s", x, 0.8))
+    model = DenseNet3(depth=7, growth_rate=4, bottleneck=False, drop_rate=0.2, reduction=1.0)
+    task = Task(model=model, has_batch_stats=True, has_dropout=True)
+    params, state = task.init(torch.Generator().manual_seed(0), cuda)
+    batch = {k: torch.as_tensor(v, device=cuda) for k, v in _batch8().items()}
+    batch["x"] = batch["x"].float()
+    _, hvp = curvature.linearize_hvp(task.loss_fn(state, 11), params, batch)
+    u = {k: torch.randn_like(t) for k, t in params.items()}
+    v = {k: torch.randn_like(t) for k, t in params.items()}
+    hv, hu = hvp(v), hvp(u)
+    scale = float(tree_norm(u) * tree_norm(hv))
+    assert abs(float(tree_vdot(u, hv) - tree_vdot(v, hu))) < 1e-4 * scale
+
+
+def test_gemm_cnn_step_card_vs_cpu(cuda):
+    from optwboundeigenval_tpu_torch.models.cnn_usps import CNNUSPS
+    from optwboundeigenval_tpu_torch.optim.api import adam
+
+    rng = np.random.default_rng(1)
+    batch = {"x": rng.normal(size=(16, 16, 16, 1)), "y": rng.integers(0, 10, 16).astype(np.int32),
+             "w": np.ones(16, np.float32)}
+    out = {}
+    for dev in ("cpu", "cuda"):
+        tr = SpectralTrainer(Task(model=CNNUSPS(conv_impl="gemm")), adam(1e-3), mu=0.01, K=0.0,
+                             device=dev)
+        tr.init_state()
+        tr.params = _f64(tr.params, dev)
+        tr.opt_state = tr.optimizer.init(tr.params)
+        tr.v = {k: torch.ones_like(t) for k, t in tr.params.items()}
+        m = tr.train_step(batch)
+        out[dev] = (m, _f64(tr.opt_state["mu"], "cpu"))
+    (mc, dc), (mg, dg) = out["cpu"], out["cuda"]
+    assert mg["pow_iters"] == mc["pow_iters"]
+    for k in ("rho", "g", "gradf_norm"):
+        assert abs(mg[k] - mc[k]) <= 1e-9 * abs(mc[k]), k
+    assert float(tree_norm(tree_sub(dg, dc)) / tree_norm(dc)) < 1e-9
+
+
+def test_legacy_loops_and_vae_on_the_card(cuda):
+    from optwboundeigenval_tpu_torch.data.synthetic import make_multilabel
+    from optwboundeigenval_tpu_torch.models.backbones import DenseNetFeatures
+    from optwboundeigenval_tpu_torch.models.cxr import CXRModel
+    from optwboundeigenval_tpu_torch.models.vae import VAE
+    from optwboundeigenval_tpu_torch.optim.api import adam
+    from optwboundeigenval_tpu_torch.train import legacy
+    from optwboundeigenval_tpu_torch.train.task import weighted_bce_with_logits
+
+    x, y = make_multilabel(8, shape=(64, 64, 3), n_classes=14, seed=2, nan_frac=0.0)
+    loader = [{"x": x[i:i + 4], "y": y[i:i + 4], "w": np.ones(4, np.float32)} for i in (0, 4)]
+    task = Task(model=CXRModel("densenet121", outnum=14), loss=weighted_bce_with_logits,
+                has_batch_stats=True)
+    params, state = task.init(torch.Generator().manual_seed(0), cuda)
+    opt = adam(1e-5)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params, state, _, loss = legacy.train_epoch(task, params, state, opt, opt.init(params),
+                                                loader, gen)
+    vloss, _ = legacy.validate(task, params, state, loader)
+    roc, avg, _ = legacy.test(task, params, state, loader)
+    assert np.isfinite([loss, vloss, avg]).all() and roc.shape == (14,)
+    vae = VAE(DenseNetFeatures((2, 2), 8, 16, 2), znum=8, hnum=16, outnum=14)
+    vae.reset_parameters(torch.Generator().manual_seed(1))
+    vp = {k: p.detach().to(cuda) for k, p in vae.named_parameters()}
+    vs = {k: b.detach().to(cuda) for k, b in vae.named_buffers()}
+    vp, vs2, _, vloss = legacy.train2_epoch(vae, vp, vs, opt, opt.init(vp), loader, gen)
+    assert np.isfinite(vloss) and all(torch.equal(vs2[k], t) for k, t in vs.items())
+
+
+def test_oracle_on_the_card(cuda):
+    from optwboundeigenval_tpu_torch import hess_test
+
+    diffs = hess_test.main([])
+    assert all(diffs[k] < b for k, b in hess_test.BOUNDS.items())
+
+
+@pytest.mark.parametrize("arch", ["forest", "usps_cnn", "densenet3"])
+def test_reference_pt_round_trip_on_the_card(cuda, tmp_path, arch):
+    from optwboundeigenval_tpu_torch.models.cnn_usps import CNNUSPS
+    from optwboundeigenval_tpu_torch.models.mlp_forest import ForestNet
+    from optwboundeigenval_tpu_torch.train.checkpoints import (
+        load_torch_checkpoint,
+        save_torch_checkpoint,
+    )
+
+    build, shape = {"forest": (ForestNet, (4, 54)), "usps_cnn": (CNNUSPS, (4, 16, 16, 1)),
+                    "densenet3": (lambda: DenseNet3(depth=7, growth_rate=4, bottleneck=False,
+                                                    drop_rate=0.2, reduction=1.0),
+                                  (4, 32, 32, 3))}[arch]
+    src = build()
+    src.reset_parameters(torch.Generator().manual_seed(2))
+    src = src.to(cuda)
+    path = save_torch_checkpoint(src, str(tmp_path / f"{arch}.pt"), arch)
+    dst = build().to(cuda)
+    dst.load_state_dict(load_torch_checkpoint(path, arch))
+    x = torch.randn(shape, device=cuda)
+    assert torch.equal(dst(x), src(x))

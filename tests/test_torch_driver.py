@@ -440,10 +440,23 @@ def test_unknown_or_unported_config_keys_raise(key, value, match):
 
 
 def test_unported_config_choices_raise():
+    """An unknown optimizer raises; ``has_dropout`` is ported: the driver
+    builds a dropout ``Task`` whose steps draw one key each from the
+    trainer's seed, and a model without dropout layers trains as without
+    the option (as in the JAX package, whose flax model then draws
+    nothing)."""
     with pytest.raises(ValueError, match="unknown optimizer"):
         forest_best.options(device="cpu", optimizer="lbfgs")
-    with pytest.raises(NotImplementedError, match="dropout"):
-        driver.build_trainer(forest_best.options(device="cpu", has_dropout=True))
+    runs = []
+    for has_dropout in (True, False):
+        opts = forest_best.options(device="cpu", has_dropout=has_dropout)
+        tr = driver.build_trainer(opts)
+        assert tr.task.has_dropout == has_dropout
+        batch = {"x": opts["inputs"][:128], "y": opts["target"][:128],
+                 "w": np.ones(128, np.float32)}
+        runs.append(tr.train_step(batch))
+        assert tr._dropout_draws == int(has_dropout)
+    assert runs[0]["rho"] == runs[1]["rho"] and runs[0]["pow_iters"] == runs[1]["pow_iters"]
 
 
 def test_main_needs_the_card_unless_told():

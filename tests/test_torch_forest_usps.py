@@ -123,8 +123,19 @@ def test_forward_matches_flax(name, flat):
 
 
 def test_cnn_gemm_is_not_ported():
-    with pytest.raises(NotImplementedError, match="gemm"):
-        CNNUSPS(conv_impl="gemm")
+    """``conv_impl='gemm'`` is ported: its forward equals the JAX gemm
+    model's on the same weights (and the lax forward); its derivatives are
+    held to JAX's in ``tests/test_torch_misc_surface.py``."""
+    _, p, _, _, to_port, x = _model("cnn")
+    want = JaxCNNUSPS(dtype=jnp.float64, conv_impl="gemm").apply({"params": p}, jnp.asarray(x))
+    gemm = Task(model=CNNUSPS(conv_impl="gemm"))
+    got = gemm.predict(to_port(p), {}, {"x": torch.from_numpy(x)}).numpy()
+    np.testing.assert_allclose(got, np.asarray(want), rtol=RTOL,
+                               atol=RTOL * np.abs(np.asarray(want)).max())
+    lax = Task(model=CNNUSPS()).predict(to_port(p), {}, {"x": torch.from_numpy(x)}).numpy()
+    np.testing.assert_allclose(got, lax, rtol=RTOL, atol=RTOL * np.abs(lax).max())
+    with pytest.raises(ValueError, match="conv_impl"):
+        CNNUSPS(conv_impl="fft")
 
 
 def _jit(fn, loss_fn, *args):

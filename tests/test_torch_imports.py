@@ -1,8 +1,9 @@
 """The port must run on a machine with PyTorch and no JAX: no module of
 ``optwboundeigenval_tpu_torch/`` and not ``chip_smoke.py`` may import
 ``jax``, ``flax``, ``optax`` or anything of ``optwboundeigenval_tpu``
-(whose ``__init__`` imports jax).  Checked statically, because this
-test process has jax loaded already.
+(whose ``__init__`` imports jax), nor the repo's ``scripts/``.  Checked
+statically, because this test process has jax loaded already, and for the
+modules of the later slices also in a fresh interpreter.
 
 The GPU machine has no pandas, sklearn, PIL or matplotlib either: pandas
 and sklearn are never imported, and PIL (the chest x-ray images) and
@@ -15,7 +16,8 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "optwboundeigenval_tpu", "pandas", "sklearn")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "optwboundeigenval_tpu", "pandas", "sklearn",
+             "scripts")
 NOT_AT_IMPORT = ("PIL", "matplotlib")
 FILES = sorted((ROOT / "optwboundeigenval_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
@@ -103,3 +105,16 @@ def test_analysis_modules_import_alone(name):
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, f"{mod} imports {out.stdout.strip()} {out.stderr[-2000:]}"
+
+
+SURFACE = ["models.dropout", "models.densenet", "models.cnn_usps", "models.vae",
+          "models.logistic", "train.legacy", "train.checkpoints", "utils.torch_interop",
+          "utils.cmd", "optim.schedules", "hess_test"]
+
+
+@pytest.mark.parametrize("name", SURFACE)
+def test_surface_modules_import_alone(name):
+    """The dropout, legacy, VAE, reference-checkpoint and oracle modules
+    import in a fresh interpreter without jax, flax, optax, sklearn,
+    matplotlib, the JAX package or the repo's ``scripts``."""
+    test_analysis_modules_import_alone(name)

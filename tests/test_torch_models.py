@@ -138,9 +138,23 @@ def test_losses_match_jax(name):
 
 
 def test_dropout_and_basic_blocks_are_not_ported():
-    with pytest.raises(NotImplementedError):
-        DenseNet3(depth=10, growth_rate=4, drop_rate=0.2)
-    with pytest.raises(NotImplementedError):
-        DenseNet3(depth=10, growth_rate=4, bottleneck=False)
-    with pytest.raises(NotImplementedError):
-        Task(model=DenseNet3(depth=10, growth_rate=4), has_dropout=True)
+    """Dropout and basic blocks are ported: a dropout DenseNet3 of either
+    kind, in a dropout ``Task``, predicts as the JAX model does (eval mode:
+    no dropout); its train-mode passes are held to flax's masks in
+    ``tests/test_torch_dropout.py``."""
+    rng = np.random.default_rng(4)
+    x = rng.normal(size=(4, 32, 32, 3))
+    for bottleneck in (True, False):
+        kw = dict(depth=10, growth_rate=4, bottleneck=bottleneck, drop_rate=0.2,
+                  reduction=0.5 if bottleneck else 1.0)
+        jtask = JaxTask(model=JaxDenseNet3(dtype=jnp.float64, **kw), has_batch_stats=True,
+                        has_dropout=True)
+        p, s = jtask.init(jax.random.PRNGKey(2), jnp.asarray(x))
+        p = jax.tree.map(lambda a: np.asarray(a, np.float64), p)
+        stats = jax.tree.map(lambda a: np.asarray(a, np.float64)
+                             + rng.uniform(0.1, 0.5, size=a.shape), s["batch_stats"])
+        ttask = Task(model=DenseNet3(**kw), has_batch_stats=True, has_dropout=True)
+        tp, ts = densenet3_from_jax(p, stats)
+        want = jtask.predict(p, {"batch_stats": stats}, {"x": jnp.asarray(x)})
+        got = ttask.predict(tp, ts, {"x": torch.from_numpy(x)})
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=1e-12)
