@@ -33,7 +33,7 @@ Phases (any failure exits non-zero and prints no result line):
    back to the trained tensors;
 8. the DenseNet-40 epoch through K1: ``cifar10_densenet_mu0_01_K0`` with
    ``remat=False, augment=False, hvp_micro=2, max_iter=1`` through
-   ``driver.run`` on the first 256 train, valid and test rows (8 steps; a
+   ``driver.run`` on the first 128 train, valid and test rows (4 steps; a
    cut for the time limit only), ``defer_metrics`` as the recipe sets
    it; K1 must launch ``hvp_micro * sum(pow_iters + 2)`` times over the
    epoch's steps (the epoch-end ``rho`` goes through the cached
@@ -82,9 +82,9 @@ Phases (any failure exits non-zero and prints no result line):
     ``make_multilabel`` stand-ins (NIH 14 classes; CheXpert and MIMIC 13,
     10% NaN labels): ``chestxray_mu0_01_K0`` (``CXRModel(densenet121)``,
     batch 4) through ``driver.run`` with no other override but
-    ``max_iter=1`` and the loaders (32 train rows, 16 valid, 16 per test
-    set), ``comp_test`` over the three test sets on their shared classes,
-    then the same epoch with ``remat=False``: s/epoch, steps/s, mean
+    ``max_iter=1`` and the loaders (16 train rows, 16 valid, 16 per test
+    set; 4 steps, a cut for the time limit only), ``comp_test`` over the
+    three test sets on their shared classes, then the same epoch with ``remat=False``: s/epoch, steps/s, mean
     ``pow_iters``, a profiled step, the peak device memory and the
     per-dataset AUC; the memory of one step's curvature passes with remat
     on and off (remat's HVP map must hold less between products and its
@@ -138,8 +138,30 @@ Phases (any failure exits non-zero and prints no result line):
     the card; ``.pt`` round trips for ``forest``, ``usps_cnn`` and
     ``densenet3``, and a torchvision-keyed densenet121 state dict (``module.``
     prefixes, ``norm.1`` keys) into the trunk, outputs equal;
-16. a ``{"kernels": [...]}`` line (K1's launches summed over phases 4, 7,
-    8, 10, 11, 12, 13 and 15, each counted from 0 just before its run),
+16. the trainer's execution knobs and the data-parallel mesh: (a) the
+    JAX package's device-bound flagship leg on the published DenseNet-40
+    recipe through ``driver.run``, the train set on the card
+    (``device_data``, ``cifar_augment_device`` for the host augmentation),
+    ``scan_steps=8``, ``donate``, ``mem_track`` and epoch 0 profiled into
+    ``profile_dir``, two epochs on the first 128 rows (4 steps, one chunk
+    an epoch; a cut for time only): s/epoch, steps/s, mean ``pow_iters``,
+    ``mem_max``, the peak memory, the trace's size, events and busy share;
+    the unprofiled epoch 1 against epoch 1 of the same run with
+    ``scan_steps=1`` and no ``donate`` (the same ``pow_iters``) and beside
+    phase 10's run with every knob off; (b) the float64 recipe at batch 4
+    for 2 chunks of 2 steps with ``scan_steps``, ``donate`` and the device
+    loader on and then off, within ``CARD_F64_RTOL``, the donated state
+    keeping its storage; (c) one such chunk with ``hvp_micro=2``, K1
+    launching ``2 * (pow_iters + 2)`` times a step; (d) one
+    ``chestxray_mu0_01_K0`` step at 224 px, batch 4, with ``donate`` off and
+    on, the peak memory of each; (e) two gloo ranks sharing the card (this
+    script started with ``--rank``) at float64 on ``usps_cnn_mu0_01_K0`` for
+    one epoch of 2 steps and on the DenseNet-40 recipe for one step at
+    batch 4, against one process, and a one-rank NCCL group on
+    ``forest_best`` (float64) for one epoch through ``driver.run`` against
+    ``mesh=None``, all within ``CARD_F64_RTOL``;
+17. a ``{"kernels": [...]}`` line (K1's launches summed over phases 4, 7,
+    8, 10, 11, 12, 13, 15 and 16, each counted from 0 just before its run),
     the card's name and power limit, and last the ``{"ok": true, "device":
     ...}`` line.
 
@@ -712,7 +734,7 @@ def phase_epochs(device="cuda", epochs=2):
     return out
 
 
-def phase_densenet_epoch(device="cuda", rows=256):
+def phase_densenet_epoch(device="cuda", rows=128):
     """Phase 8: one DenseNet-40 epoch through ``driver.run`` with
     ``hvp_micro=2``, on the first ``rows`` rows of each split; K1's
     launches must be ``hvp_micro * sum(pow_iters + 2)`` over the steps."""
@@ -916,7 +938,9 @@ def remat_memory(label, build, batch, device="cuda"):
 def phase_recipe(device="cuda", rows=256):
     """Phase 10: the published DenseNet-40 recipe through ``driver.run``,
     with remat and without; a float64 step with remat on and off; and 2
-    remat steps with ``hvp_micro=2`` through K1.  Returns K1's launches."""
+    remat steps with ``hvp_micro=2`` through K1.  Returns K1's launches
+    and the recipe's run as published (s/epoch, steps/s, ``pow_iters``,
+    peak), which phase 16 prints beside its knobs."""
     from optwboundeigenval_tpu_torch.configs import cifar10_densenet_mu0_01_K0 as cfg
     from optwboundeigenval_tpu_torch.data.loaders import ArrayLoader
     from optwboundeigenval_tpu_torch.ops import pallas_kernels as pk
@@ -924,7 +948,7 @@ def phase_recipe(device="cuda", rows=256):
 
     cuda = device == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
-    launches = 0
+    launches, published = 0, {}
     with tempfile.TemporaryDirectory() as tmp:
         for i, (label, overrides) in enumerate((("recipe", {}),
                                                 ("recipe remat=False", {"remat": False}))):
@@ -945,6 +969,10 @@ def phase_recipe(device="cuda", rows=256):
                                            device, 1)
             launches += n
             mem = torch.cuda.max_memory_allocated() if cuda else "not measured"
+            if not overrides:  # beside phase 16's run of the recipe with the knobs on
+                t = trainer.timers.totals
+                published.update(s_epoch=t["Iteration"], pow=trainer.mean_pow_iters,
+                                  steps_s=len(trainer.epoch_pow_iters) / t["G"], peak=mem)
             log(f"{label}: remat {trainer.remat}, augment {1e3 * hook.seconds / hook.calls:.3f} "
                 f"host ms per batch ({hook.calls} batches of {bs}), "
                 f"pow_iters per step {trainer.epoch_pow_iters}, max_memory_allocated {mem} B")
@@ -1005,7 +1033,7 @@ def phase_recipe(device="cuda", rows=256):
             fail(f"remat hvp_micro=2 step {i}: {m}")
         if cuda and launched != want:
             fail(f"remat hvp_micro=2 step {i}: {launched} K1 launches, expected {want}")
-    return launches + pk.axpy_accumulate.launches
+    return launches + pk.axpy_accumulate.launches, published
 
 
 def phase_eigensolvers(power_hvps, device="cuda"):
@@ -1420,7 +1448,7 @@ def phase_comparators(device="cuda"):
 
 
 CXR_PX = 224  # the published input width of the chest x-ray recipes
-CXR_ROWS = (32, 16, 16)  # train, valid and each test set: 8 steps at batch 4
+CXR_ROWS = (16, 16, 16)  # train, valid and each test set: 4 steps at batch 4
 
 
 def cxr_loaders(rows=CXR_ROWS, px=CXR_PX, batch=4):
@@ -2362,7 +2390,369 @@ def phase_surface(device="cuda", lax=None):
     return launches
 
 
+# phase 16: the execution knobs and the data-parallel mesh
+
+
+@contextlib.contextmanager
+def _counted(cls, name):
+    """Count the calls of ``cls.name`` inside; yields the counter."""
+    calls = [0]
+    real = getattr(cls, name)
+
+    def counting(*args, **kwargs):
+        calls[0] += 1
+        return real(*args, **kwargs)
+
+    setattr(cls, name, counting)
+    try:
+        yield calls
+    finally:
+        setattr(cls, name, real)
+
+
+def _trace_stats(path):
+    """``(bytes, events, kernel busy share of the traced span, op names)``
+    of a Chrome trace written by ``torch.profiler``."""
+    with open(path) as fh:
+        events = [e for e in json.load(fh)["traceEvents"] if "ts" in e]
+    spans = [(float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0))) for e in events]
+    wall = max(b for _, b in spans) - min(a for a, _ in spans)
+    busy = sum(float(e.get("dur", 0)) for e in events if e.get("cat") == "kernel")
+    return (os.path.getsize(path), len(events), busy / wall if wall else None,
+            {e.get("name", "") for e in events})
+
+
+def _flagship_run(label, tmp, device, rows, epochs, **knobs):
+    """The published DenseNet-40 recipe through ``driver.run`` on its first
+    ``rows`` rows for ``epochs`` epochs, the train set on the card with
+    ``cifar_augment_device`` and ``knobs``.  Returns the trainer, K1's
+    launches, the chunks run and each epoch's ``(seconds by timer,
+    pow_iters)``, printed."""
+    from optwboundeigenval_tpu_torch.configs import cifar10_densenet_mu0_01_K0 as cfg
+    from optwboundeigenval_tpu_torch.data.device import cifar_augment_device
+    from optwboundeigenval_tpu_torch.data.loaders import ArrayLoader
+    from optwboundeigenval_tpu_torch.train.trainer import SpectralTrainer
+
+    opts = cfg.options(max_iter=epochs, device=device, log_dir=f"{tmp}/{label}/logs",
+                       model_dir=f"{tmp}/{label}/models", device_data=True,
+                       device_augment=cifar_augment_device, **knobs)
+    bs = opts["batch_size"]
+    cut = lambda ld, **kw: ArrayLoader(ld.x[:rows], ld.y[:rows], bs, **kw)
+    opts["train_loader"] = cut(opts["train_loader"], shuffle=True, seed=1226,
+                               augment=opts["train_loader"].augment)
+    opts["valid_loader"] = cut(opts["valid_loader"])
+    opts["train_loader_na"] = cut(opts["train_loader_na"])
+    opts["test_loader"] = [cut(opts["test_loader"][0])]
+    per_epoch, prev = [], {}
+    real_epoch = SpectralTrainer.iter_epoch
+
+    def timed_epoch(self, loader):
+        nonlocal prev
+        real_epoch(self, loader)
+        t = dict(self.timers.totals)
+        per_epoch.append(({k: t[k] - prev.get(k, 0.0) for k in ("Iteration", "G", "Test")},
+                          list(self.epoch_pow_iters)))
+        prev = t
+
+    with _counted(SpectralTrainer, "_run_scan_chunk") as chunks:
+        SpectralTrainer.iter_epoch = timed_epoch
+        try:
+            trainer, _, launches = run_epochs(f"cifar10_densenet_mu0_01_K0 {label}", opts,
+                                              device, epochs)
+        finally:
+            SpectralTrainer.iter_epoch = real_epoch
+    for i, (d, pows) in enumerate(per_epoch):
+        profiled = " (profiled)" if knobs.get("profile_dir") and i == 0 else ""
+        log(f"{label}, epoch {i}{profiled}: {len(pows)} steps, {d['Iteration']:.2f} s/epoch "
+            f"(steps {d['G']:.2f} s, epoch-end f {d['Test']:.2f} s), {len(pows) / d['G']:.3f} "
+            f"steps/s, mean pow_iters {np.mean(pows):.2f}, pow_iters {pows}")
+    steps = [len(p) for _, p in per_epoch]
+    if steps != [rows // bs] * epochs:
+        fail(f"{label}: {steps} steps, expected {rows // bs} an epoch")
+    return trainer, launches, chunks[0], per_epoch
+
+
+def knobs_flagship(tmp, device="cuda", rows=128, epochs=2, off=None):
+    """Phase 16 (a): the JAX package's device-bound flagship leg
+    (bench.py:673-703) on the published DenseNet-40 recipe: the train set
+    on the card with ``cifar_augment_device`` for the host augmentation,
+    ``scan_steps=8``, ``donate``, ``mem_track``, epoch 0 profiled into
+    ``profile_dir``, on the first ``rows`` rows (4 steps, one chunk an
+    epoch; a cut for the time limit only: the profiled epoch's trace of 256
+    rows took 1.4 GB).  Epoch 1 runs unprofiled and is compared with epoch
+    1 of the same run with ``scan_steps=1`` and no ``donate`` (the same
+    trajectory, so the same HVPs), and with phase 10's run of the recipe
+    with every knob off (``off``, phase 10's numbers).  Returns K1's launches."""
+    _, launches_off, _, base = _flagship_run("scan_steps=1", tmp, device, rows, epochs)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    trainer, launches, chunks, per_epoch = _flagship_run(
+        "knobs on", tmp, device, rows, epochs, scan_steps=8, donate=True, mem_track=True,
+        profile_dir=os.path.join(tmp, "trace"), profile_epoch=0)
+    peak = torch.cuda.max_memory_allocated() if device == "cuda" else None
+    size, events, busy, names = _trace_stats(trainer.trace_file(0))
+    rate = lambda run: len(run[-1][1]) / run[-1][0]["G"]
+    log(f"knobs on: {chunks} chunks, mem_max {trainer.mem_max} B, max_memory_allocated "
+        f"{peak} B; epoch 0's trace {size} B, {events} events, device busy "
+        f"{'not measured' if busy is None else f'{100 * busy:.1f}%'} of the traced span; "
+        f"epoch 1 {rate(per_epoch):.3f} steps/s against {rate(base):.3f} with scan_steps=1 "
+        f"and no donate ({rate(per_epoch) / rate(base):.3f}x)")
+    if off:
+        log(f"knobs off (phase 10, the same recipe on 256 rows, one epoch): {off['s_epoch']:.2f} "
+            f"s/epoch, {off['steps_s']:.3f} steps/s, mean pow_iters {off['pow']:.2f}, "
+            f"max_memory_allocated {off['peak']} B; steps/s of epoch 1 on/off "
+            f"{rate(per_epoch) / off['steps_s']:.3f}x")
+    if per_epoch[-1][1] != base[-1][1]:
+        fail(f"knobs on: pow_iters {per_epoch[-1][1]} where scan_steps=1 took {base[-1][1]}")
+    if chunks != epochs or "aten::index_select" not in names:
+        fail(f"knobs on: {chunks} chunks, device gather {'aten::index_select' in names}: "
+             "the scan path or the device data did not run")
+    if device == "cuda" and not trainer.mem_max > 0:
+        fail("knobs on: mem_track read no device memory")
+    return launches + launches_off
+
+
+def _f64_trainer(device, batch_size=4, **overrides):
+    """The DenseNet-40 recipe at float64, augmentation off."""
+    from optwboundeigenval_tpu_torch.configs import cifar10_densenet_mu0_01_K0 as cfg
+    from optwboundeigenval_tpu_torch.train.driver import build_trainer
+
+    opts = cfg.options(device=device, augment=False, batch_size=batch_size, **overrides)
+    return _as_f64(build_trainer(opts)), opts["train_loader_na"]
+
+
+def _ptrs(tr):
+    trees = (tr.params, tr.model_state, tr.opt_state["trace"], tr.v)
+    return [t.data_ptr() for tree in trees for t in tree.values()]
+
+
+def knobs_trajectory(device="cuda", rows=16):
+    """Phase 16 (b): the float64 DenseNet-40 recipe at batch 4, augmentation
+    off, 2 chunks of 2 steps with ``scan_steps``, ``donate`` and the device
+    loader, then the same epoch with all three off: ``params``, ``v``, ``f``
+    and ``rho`` within ``CARD_F64_RTOL``; under donate the state keeps its
+    storage."""
+    from optwboundeigenval_tpu_torch.data.device import DeviceArrayLoader
+    from optwboundeigenval_tpu_torch.data.loaders import ArrayLoader
+
+    out = {}
+    for on in (True, False):
+        knobs = dict(scan_steps=2, donate=True) if on else {}
+        tr, na = _f64_trainer(device, **knobs)
+        x, y = na.x[:rows], na.y[:rows]
+        loader = (DeviceArrayLoader(x, y, 4, shuffle=True, seed=1226, device=device) if on
+                  else ArrayLoader(x, y, 4, shuffle=True, seed=1226))
+        before = _ptrs(tr)
+        t0 = time.perf_counter()
+        tr.iter_epoch(loader)
+        _sync(device)
+        out[on] = tr
+        log(f"float64 knobs {'on' if on else 'off'}: f {tr.f:.15g} rho {tr.rho:.15g} "
+            f"pow_iters {tr.epoch_pow_iters}, {time.perf_counter() - t0:.2f} s; storage kept "
+            f"{_ptrs(tr) == before}")
+        if on and _ptrs(tr) != before:
+            fail("donate: the state did not keep its storage")
+    a, b = out[True], out[False]
+    errs = {"f": abs(a.f - b.f) / abs(b.f), "rho": abs(a.rho - b.rho) / abs(b.rho),
+            "params": _rel(a.params, b.params), "v": _rel(a.v, b.v)}
+    log("float64 knobs on vs off: relative errors "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()) + f" (bound {CARD_F64_RTOL:g})")
+    if a.epoch_pow_iters != b.epoch_pow_iters or not max(errs.values()) < CARD_F64_RTOL:
+        fail("float64 knobs on and off disagree")
+
+
+def knobs_k1(device="cuda", rows=8):
+    """Phase 16 (c): one chunk of 2 float64 steps with ``hvp_micro=2`` and
+    ``remat=False``: K1 launches ``2 * (pow_iters + 2)`` a step (the
+    epoch-end ``rho`` and ``f`` launch none).  Returns K1's launches."""
+    from optwboundeigenval_tpu_torch.data.device import DeviceArrayLoader
+    from optwboundeigenval_tpu_torch.ops import pallas_kernels as pk
+
+    tr, na = _f64_trainer(device, scan_steps=2, donate=True, hvp_micro=2, remat=False)
+    loader = DeviceArrayLoader(na.x[:rows], na.y[:rows], 4, device=device)
+    pk.axpy_accumulate.launches = 0
+    tr.iter_epoch(loader)
+    launches = pk.axpy_accumulate.launches
+    want = sum(tr.hvp_micro * (p + 2) for p in tr.epoch_pow_iters)
+    log(f"K1 under scan_steps: pow_iters {tr.epoch_pow_iters}, K1 launches {launches} "
+        f"(expected {want})")
+    if device == "cuda" and (launches != want or launches == 0):
+        fail(f"K1 under scan_steps: {launches} launches, expected {want}")
+    return launches
+
+
+def knobs_cxr_memory(device="cuda", px=CXR_PX):
+    """Phase 16 (d): one ``chestxray_mu0_01_K0`` step at 224 px, batch 4,
+    with ``donate`` off and on: the peak device memory of each."""
+    from optwboundeigenval_tpu_torch.configs import chestxray_mu0_01_K0 as cfg
+    from optwboundeigenval_tpu_torch.train.driver import build_trainer
+
+    mem, peaks = _Memory(device), {}
+    for donate in (False, True):
+        opts = cfg.options(device=device, donate=donate, **cxr_loaders((4, 4, 4), px))
+        tr = build_trainer(opts)
+        tr.init_state()
+        m, peak, _ = mem(lambda: tr.train_step(next(iter(opts["train_loader"]))))
+        state = sum(t.numel() * t.element_size() for tree in (tr.params, tr.v)
+                    for t in tree.values())
+        peaks[donate] = peak
+        log(f"chestxray_mu0_01_K0 step, donate {donate}: peak {peak} B above the state "
+            f"before it (params and v {state} B), pow_iters {m['pow_iters']}")
+        if not m["step_ok"]:
+            fail(f"chestxray donate={donate}: the step is not finite")
+        del tr
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    log(f"chestxray step peak: donate {peaks[True]} B against {peaks[False]} B "
+        f"({peaks[True] / peaks[False]:.4f}x)")
+
+
+def _mesh_runs(device, mesh=None):
+    """The scenarios of phase 16 (e) on this rank (``mesh``) or one process:
+    ``usps_cnn_mu0_01_K0`` at float64 for one epoch of 2 steps (256 rows)
+    and the DenseNet-40 recipe at float64 for one step at batch 4 (its
+    BatchNorm over the ranks' rows)."""
+    from optwboundeigenval_tpu_torch.configs import usps_cnn_mu0_01_K0
+    from optwboundeigenval_tpu_torch.data.loaders import ArrayLoader
+    from optwboundeigenval_tpu_torch.parallel import shard_batch
+    from optwboundeigenval_tpu_torch.train.driver import build_trainer
+
+    out = {}
+    opts = usps_cnn_mu0_01_K0.options(device=device, mesh=mesh)
+    runs = (("usps_cnn_mu0_01_K0", _as_f64(build_trainer(opts)), opts["train_loader_na"], 128, 2),
+            ("densenet40 recipe", *_f64_trainer(device, mesh=mesh), 4, 1))
+    for label, tr, na, bs, steps in runs:
+        batches = list(ArrayLoader(na.x[:steps * bs], na.y[:steps * bs], bs))
+        if mesh is not None:
+            batches = [shard_batch(b, mesh) for b in batches]
+        t0 = time.perf_counter()
+        tr.iter_epoch(batches)
+        _sync(device)
+        out[label] = {"f": tr.f, "rho": tr.rho, "seconds": time.perf_counter() - t0,
+                      "params": {k: t.detach().cpu() for k, t in tr.params.items()}}
+    return out
+
+
+def mesh_rank(argv):
+    """One rank of phase 16 (e), started by :func:`knobs_mesh`:
+    ``chip_smoke.py --rank R --world N --port P --out DIR --device D``."""
+    from optwboundeigenval_tpu_torch.parallel import init_distributed, make_mesh
+
+    args = dict(zip(argv[1::2], argv[2::2]))
+    rank, world, device = int(args["--rank"]), int(args["--world"]), args["--device"]
+    torch.set_num_threads(2)  # the ranks share the host's cores with the parent
+    init_distributed(f"127.0.0.1:{args['--port']}", num_processes=world, process_id=rank,
+                     backend="gloo")
+    mesh = make_mesh(device=None if device == "cuda" else device)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = _mesh_runs(device, mesh)
+    torch.save(out, os.path.join(args["--out"], f"rank{rank}.pt"))
+    torch.distributed.destroy_process_group()
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def knobs_mesh(tmp, device="cuda", world=2):
+    """Phase 16 (e): ``world`` gloo ranks sharing the one card against one
+    process (float64, ``CARD_F64_RTOL``); then a one-rank NCCL group on
+    ``forest_best`` (float64) for one epoch through ``driver.run`` against
+    ``mesh=None``."""
+    from optwboundeigenval_tpu_torch.configs import forest_best
+    from optwboundeigenval_tpu_torch.models.mlp_forest import ForestNet
+    from optwboundeigenval_tpu_torch.parallel import init_distributed, make_mesh
+    from optwboundeigenval_tpu_torch.train import driver
+
+    t0 = time.perf_counter()
+    port = _free_port()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--rank", str(r),
+                               "--world", str(world), "--port", str(port), "--out", tmp,
+                               "--device", device],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+             for r in range(world)]
+    try:
+        one = _mesh_runs(device)
+        outs = [p.communicate(timeout=600)[0].decode(errors="replace") for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for r, (p, text) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            log(text[-4000:])
+            fail(f"mesh rank {r} exited {p.returncode}")
+    ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+             for r in range(world)]
+    for label, want in one.items():
+        for r, res in enumerate(ranks):
+            got = res[label]
+            errs = {"f": abs(got["f"] - want["f"]) / abs(want["f"]),
+                    "rho": abs(got["rho"] - want["rho"]) / abs(want["rho"]),
+                    "params": _rel(got["params"], want["params"])}
+            log(f"{world} gloo ranks on one card, {label}, rank {r}: "
+                + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+                + f" (bound {CARD_F64_RTOL:g}); {got['seconds']:.2f} s against "
+                f"{want['seconds']:.2f} s in one process")
+            if not max(errs.values()) < CARD_F64_RTOL:
+                fail(f"{label}: rank {r} and one process disagree")
+    log(f"phase 16 (e): {world} ranks done, {time.perf_counter() - t0:.1f} s")
+
+    # NCCL on the card (gloo for a rehearsal on the CPU)
+    init_distributed(f"127.0.0.1:{_free_port()}", num_processes=1, process_id=0,
+                     backend="nccl" if device == "cuda" else "gloo")
+    try:
+        runs = {}
+        for label, mesh in (("mesh=None", None),
+                            ("one-rank NCCL mesh", make_mesh(device=None if device == "cuda"
+                                                             else device))):
+            opts = forest_best.options(device=device, max_iter=1, mesh=mesh,
+                                       model=ForestNet().double(),
+                                       log_dir=f"{tmp}/{label}/logs",
+                                       model_dir=f"{tmp}/{label}/models")
+            t1 = time.perf_counter()
+            runs[label] = driver.run(opts)
+            log(f"forest_best {label}: f {runs[label].f:.15g} rho {runs[label].rho:.15g}, "
+                f"{time.perf_counter() - t1:.2f} s")
+        a, b = runs["one-rank NCCL mesh"], runs["mesh=None"]
+        errs = {"f": abs(a.f - b.f) / abs(b.f), "rho": abs(a.rho - b.rho) / abs(b.rho),
+                "params": _rel(a.params, b.params)}
+        log("forest_best one-rank NCCL vs mesh=None: relative errors "
+            + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()) + f" (bound {CARD_F64_RTOL:g})")
+        if not max(errs.values()) < CARD_F64_RTOL:
+            fail("forest_best: the one-rank NCCL mesh and mesh=None disagree")
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def phase_knobs(device="cuda", published=None):
+    """Phase 16: the trainer's execution knobs and the data-parallel mesh.
+    Returns K1's launches."""
+    t0 = time.perf_counter()
+    lap = lambda what: log(f"phase 16: {what} done, {time.perf_counter() - t0:.1f} s in")
+    with tempfile.TemporaryDirectory() as tmp:
+        launches = knobs_flagship(tmp, device, off=published)
+    lap("(a) the flagship leg")
+    knobs_trajectory(device)
+    lap("(b) float64 knobs on vs off")
+    launches += knobs_k1(device)
+    lap("(c) K1 under scan_steps")
+    knobs_cxr_memory(device)
+    lap("(d) donate at CXR scale")
+    with tempfile.TemporaryDirectory() as tmp:
+        knobs_mesh(tmp, device)
+    lap("(e) the mesh")
+    return launches
+
+
 def main():
+    if "--rank" in sys.argv:
+        return mesh_rank(sys.argv)
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs an NVIDIA GPU")
     t0 = time.perf_counter()
@@ -2391,7 +2781,8 @@ def main():
     done("phase 8")
     phase_cached_hvp()
     done("phase 9")
-    launches += phase_recipe()
+    n, published = phase_recipe()
+    launches += n
     done("phase 10")
     launches += phase_eigensolvers(power_hvps)
     done("phase 11")
@@ -2403,6 +2794,8 @@ def main():
     done("phase 14")
     launches += phase_surface(lax=rates["usps_cnn_mu0_01_K0"])
     done("phase 15")
+    launches += phase_knobs(published=published)
+    done("phase 16")
     kernels = [{**entry, "launches": launches}]
     log(json.dumps({"kernels": kernels}))
     log(smi)

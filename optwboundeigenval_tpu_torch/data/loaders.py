@@ -5,11 +5,17 @@
   zero-weight rows (``w = 0``), so weighted means stay exact and every
   step sees one shape;
 * deterministic shuffling from a seed (reference seed 1226);
-* an optional per-batch host augmentation hook.
+* an optional per-batch host augmentation hook;
+* ``host_shard=(i, n)``: rank ``i`` of ``n`` keeps the strided rows
+  ``x[i::n]``, its share of a data-parallel run's input;
+* :class:`PrefetchLoader`: a daemon thread that keeps batches ready
+  ahead of the step.
 """
 
 from __future__ import annotations
 
+import queue
+import threading
 from typing import Callable, Dict, Iterator, Optional
 
 import numpy as np
@@ -29,11 +35,18 @@ class ArrayLoader:
         pad: bool = True,
         drop_remainder: bool = False,
         augment: Optional[Callable[[np.ndarray, np.random.Generator], np.ndarray]] = None,
+        host_shard: Optional[tuple] = None,
     ):
         if len(x) != len(y):
             raise ValueError(f"{len(x)} inputs but {len(y)} targets")
         self.x = np.asarray(x)
         self.y = np.asarray(y)
+        if host_shard is not None:
+            i, n = host_shard
+            self.x, self.y = self.x[i::n], self.y[i::n]
+        # a host-sharded loader holds rows no other rank holds: evaluation
+        # gathers them (SpectralTrainer.test_model)
+        self.host_shard = host_shard
         self.batch_size = int(batch_size)
         self.shuffle = shuffle
         self.pad = pad
@@ -83,6 +96,73 @@ class ArrayLoader:
         take = rng.choice(n, size=min(self.batch_size, n), replace=False)
         return self._padded(self.x[take], self.y[take],
                             np.ones(len(take), np.float32))
+
+
+class PrefetchLoader:
+    """A loader whose batches a daemon thread assembles ahead of the
+    consumer, at most ``depth`` of them.  An error of the wrapped loader
+    is raised to the consumer; an iteration abandoned early (``next(iter(
+    loader))``) stops the thread.  The wrapped loader's generator has then
+    advanced by the batches made ahead, as with torch DataLoader workers."""
+
+    def __init__(self, loader, depth: int = 2):
+        self.loader = loader
+        self.depth = depth
+        self.batch_size = getattr(loader, "batch_size", None)
+
+    def __len__(self):
+        return len(self.loader)
+
+    @property
+    def num_examples(self):
+        return self.loader.num_examples
+
+    def random_batch(self, rng=None):
+        return self.loader.random_batch(rng)
+
+    def __iter__(self):
+        q: queue.Queue = queue.Queue(maxsize=self.depth)
+        stop = threading.Event()
+        sentinel = object()
+        error: list = []
+
+        def put(item) -> bool:
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def worker():
+            try:
+                for batch in self.loader:
+                    if not put(batch):
+                        return
+            except BaseException as exc:  # handed to the consumer
+                error.append(exc)
+            finally:
+                put(sentinel)
+
+        t = threading.Thread(target=worker, daemon=True)
+        t.start()
+        try:
+            while True:
+                item = q.get()
+                if item is sentinel:
+                    if error:
+                        raise error[0]
+                    break
+                yield item
+        finally:
+            stop.set()
+            try:
+                while True:
+                    q.get_nowait()
+            except queue.Empty:
+                pass
+            t.join(timeout=2.0)
 
 
 def train_valid_split(

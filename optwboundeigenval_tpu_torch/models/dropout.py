@@ -22,6 +22,11 @@ flax does.  A train-mode pass with no key raises, as flax does without a
 :func:`inject` replaces the draw with given masks, ``masks(key, site,
 shape) -> keep mask``: the tests inject the masks flax drew, and the card
 is held to the CPU with the same masks.
+
+Under a data-parallel mesh (``parallel/mesh.py``) a site's mask is drawn
+for the global batch's shape and each rank takes its own rows, as flax's
+mask over a sharded batch is one global draw, so a run on several ranks
+sees the masks of a run on one.
 """
 
 from __future__ import annotations
@@ -34,6 +39,8 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 from torch import nn
+
+from optwboundeigenval_tpu_torch.parallel import mesh as meshlib
 
 _KEY = contextvars.ContextVar("dropout_key", default=None)
 _MASKS = contextvars.ContextVar("dropout_masks", default=None)
@@ -80,14 +87,16 @@ def sites(model: nn.Module) -> List[str]:
     return [m.site for m in model.modules() if isinstance(m, Dropout) and m.rate > 0]
 
 
-def keep_mask(key: int, site: str, x: torch.Tensor, keep: float) -> torch.Tensor:
-    """The keep mask of ``site`` for ``x``'s shape under ``key``, drawn on
-    ``x``'s device."""
+def keep_mask(key: int, site: str, x: torch.Tensor, keep: float,
+              shape: Optional[tuple] = None) -> torch.Tensor:
+    """The keep mask of ``site`` for ``shape`` (default ``x``'s) under
+    ``key``, drawn on ``x``'s device."""
     seed = np.random.SeedSequence([key, zlib.crc32(site.encode())]).generate_state(
         2, np.uint32)
     g = torch.Generator(device=x.device)
     g.manual_seed(int(seed[0]) << 32 | int(seed[1]))
-    return torch.rand(x.shape, generator=g, device=x.device) < keep
+    return torch.rand(x.shape if shape is None else shape, generator=g,
+                      device=x.device) < keep
 
 
 class Dropout(nn.Module):
@@ -107,9 +116,12 @@ class Dropout(nn.Module):
             raise RuntimeError(f"train-mode dropout at {self.site!r} needs a key: "
                                "build the Task with has_dropout=True and pass the step's key")
         keep = 1.0 - self.rate
+        first, rows = meshlib.global_rows(x.shape[0])
+        shape = (rows,) + tuple(x.shape[1:])
         masks = _MASKS.get()
         if masks is None:
-            mask = keep_mask(key, self.site, x, keep)
+            mask = keep_mask(key, self.site, x, keep, shape)
         else:
-            mask = masks(key, self.site, tuple(x.shape))
+            mask = masks(key, self.site, shape)
+        mask = mask[first:first + x.shape[0]]
         return x * mask.to(x.device, x.dtype) / keep

@@ -23,6 +23,12 @@ that loss reaches the gradient of the first layers, so the port keeps
 the two-pass form of torch's own BatchNorm.  The running
 variance stores the UNBIASED ``var * n / (n - 1)``; momentum 0.1 in
 torch's convention is flax's 0.9.
+
+Under a data-parallel mesh (``parallel/mesh.py``, ``active``) the
+statistics are the global batch's, as the JAX package's mean over a
+sharded batch axis is: the per-channel sums and the count go through an
+all-reduce that autograd differentiates to every order, the mean first
+and then the squared deviations from it (two passes still).
 """
 
 from __future__ import annotations
@@ -31,6 +37,8 @@ from typing import Dict, Optional
 
 import torch
 from torch import nn
+
+from optwboundeigenval_tpu_torch.parallel import mesh as meshlib
 
 
 class BatchNorm2d(nn.Module):
@@ -58,11 +66,17 @@ class BatchNorm2d(nn.Module):
                 ) -> torch.Tensor:
         if train:
             dims = (0, 2, 3)
-            mean = x.mean(dims)
-            y = x - mean[None, :, None, None]
-            var = (y * y).mean(dims)
+            n = x.numel() // x.shape[1]
+            if meshlib.current() is None:
+                mean = x.mean(dims)
+                y = x - mean[None, :, None, None]
+                var = (y * y).mean(dims)
+            else:
+                n = int(meshlib.all_sum(torch.tensor(n, device=x.device)))
+                mean = meshlib.all_sum_diff(x.sum(dims)) / n
+                y = x - mean[None, :, None, None]
+                var = meshlib.all_sum_diff((y * y).sum(dims)) / n
             if stats_out is not None:
-                n = x.numel() // x.shape[1]
                 stats_out[self] = (mean.detach(), var.detach() * (n / max(n - 1.0, 1.0)))
         else:
             var = self.running_var

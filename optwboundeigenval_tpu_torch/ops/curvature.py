@@ -31,6 +31,15 @@ a device tensor and the running sum goes through the CUDA kernel
 A dropout loss closes over its step's key (``Task.loss_fn``), so every
 slice is given the same key and, the slices sharing one shape, draws the
 same masks, as the JAX package's micro-batched passes do.
+
+Under a data-parallel mesh (``parallel/mesh.py``, ``active``) the loss is
+this rank's share of the global batch's, and every public product here
+returns the sum of the ranks' shares, one all-reduce of all leaves: the
+gradient and its loss, each HVP (``hvp``, ``linearize_hvp``'s and
+``recompute_hvp``'s maps) and the vGHv.  A micro-batched product sums
+its slices on the rank first (the accumulate kernel runs on local sums)
+and reduces once; slice ``i`` is then every rank's slice ``i``, whose
+BatchNorm statistics and weight are taken over the ranks together.
 """
 
 from __future__ import annotations
@@ -40,6 +49,7 @@ from typing import Any, Callable, Dict, Tuple
 import torch
 
 from optwboundeigenval_tpu_torch.ops.pallas_kernels import axpy_accumulate
+from optwboundeigenval_tpu_torch.parallel import mesh as meshlib
 
 Tree = Dict[str, torch.Tensor]
 LossFn = Callable[[Tree, Any], torch.Tensor]
@@ -49,14 +59,22 @@ def _leaves(params: Tree) -> Tree:
     return {k: p.detach().requires_grad_(True) for k, p in params.items()}
 
 
-def value_and_grad(loss_fn: LossFn, params: Tree, batch) -> Tuple[torch.Tensor, Tree]:
-    """``(loss, gradient)`` at ``params`` (reference ``prepare_grad``,
-    opt.py:175-192)."""
+def _value_and_grad(loss_fn: LossFn, params: Tree, batch) -> Tuple[torch.Tensor, Tree]:
     leaves = _leaves(params)
     with torch.enable_grad():
         loss = loss_fn(leaves, batch)
         g = torch.autograd.grad(loss, list(leaves.values()))
     return loss.detach(), dict(zip(leaves, g))
+
+
+def value_and_grad(loss_fn: LossFn, params: Tree, batch) -> Tuple[torch.Tensor, Tree]:
+    """``(loss, gradient)`` at ``params`` (reference ``prepare_grad``,
+    opt.py:175-192)."""
+    loss, g = _value_and_grad(loss_fn, params, batch)
+    if meshlib.current() is None:
+        return loss, g
+    out = meshlib.all_sum_tree({"": loss.reshape(1), **g})
+    return out.pop("").reshape(()), out
 
 
 def grad(loss_fn: LossFn, params: Tree, batch) -> Tree:
@@ -76,11 +94,15 @@ def _hv(loss_fn: LossFn, params: Tree, batch, v: Tree, create_graph: bool):
     return leaves, hv
 
 
+def _hvp(loss_fn: LossFn, params: Tree, batch, v: Tree) -> Tree:
+    leaves, hv = _hv(loss_fn, params, batch, v, create_graph=False)
+    return dict(zip(leaves, hv))
+
+
 def hvp(loss_fn: LossFn, params: Tree, batch, v: Tree) -> Tree:
     """``H(params) @ v`` (reference ``HVPOperator.Hv``, opt.py:77-108); the
     second pass builds no graph, so nothing outlives the call."""
-    leaves, hv = _hv(loss_fn, params, batch, v, create_graph=False)
-    return dict(zip(leaves, hv))
+    return meshlib.all_sum_tree(_hvp(loss_fn, params, batch, v))
 
 
 def linearize_hvp(loss_fn: LossFn, params: Tree, batch
@@ -101,9 +123,9 @@ def linearize_hvp(loss_fn: LossFn, params: Tree, batch
     def hvp_fn(v: Tree) -> Tree:
         hv = torch.autograd.grad(g, inputs, [v[k] for k in leaves],
                                  retain_graph=True)
-        return dict(zip(leaves, hv))
+        return meshlib.all_sum_tree(dict(zip(leaves, hv)))
 
-    return {k: t.detach() for k, t in zip(leaves, g)}, hvp_fn
+    return meshlib.all_sum_tree({k: t.detach() for k, t in zip(leaves, g)}), hvp_fn
 
 
 def recompute_hvp(loss_fn: LossFn, params: Tree, batch
@@ -116,10 +138,7 @@ def recompute_hvp(loss_fn: LossFn, params: Tree, batch
     return grad(loss_fn, params, batch), lambda v: hvp(loss_fn, params, batch, v)
 
 
-def vghv(loss_fn: LossFn, params: Tree, batch, v: Tree) -> Tree:
-    """``v^T (grad H) v``: the gradient of ``<H(p) v, v>`` with respect
-    to ``p``, a third reverse pass over the HVP's graph (reference
-    ``HVPOperator.vGHv``, opt.py:110-152)."""
+def _vghv(loss_fn: LossFn, params: Tree, batch, v: Tree) -> Tree:
     leaves, hv = _hv(loss_fn, params, batch, v, create_graph=True)
     with torch.enable_grad():
         rayleigh_num = torch.stack([torch.dot(h.reshape(-1), v[k].reshape(-1))
@@ -128,11 +147,19 @@ def vghv(loss_fn: LossFn, params: Tree, batch, v: Tree) -> Tree:
     return dict(zip(leaves, out))
 
 
+def vghv(loss_fn: LossFn, params: Tree, batch, v: Tree) -> Tree:
+    """``v^T (grad H) v``: the gradient of ``<H(p) v, v>`` with respect
+    to ``p``, a third reverse pass over the HVP's graph (reference
+    ``HVPOperator.vGHv``, opt.py:110-152)."""
+    return meshlib.all_sum_tree(_vghv(loss_fn, params, batch, v))
+
+
 def _batch_weight(batch) -> torch.Tensor:
-    """Total example weight: ``sum(w)``, else the leading dimension."""
+    """Total example weight over the mesh's ranks: ``sum(w)``, else the
+    leading dimension."""
     if "w" in batch:
-        return batch["w"].sum()
-    return torch.tensor(float(len(batch["x"])), device=batch["x"].device)
+        return meshlib.all_sum(batch["w"].sum())
+    return meshlib.all_sum(torch.tensor(float(len(batch["x"])), device=batch["x"].device))
 
 
 def _micro_batches(batch, num_micro: int):
@@ -179,16 +206,16 @@ def hvp_microbatched(loss_fn: LossFn, params: Tree, batch, v: Tree,
                      num_micro: int) -> Tree:
     """HVP summed over ``num_micro`` micro-batches: activations held at
     O(B / num_micro), exact for weighted-mean losses."""
-    return _accumulate((hvp(loss_fn, params, mb, v), s)
-                       for mb, s in _micro_batches(batch, num_micro))
+    return meshlib.all_sum_tree(_accumulate((_hvp(loss_fn, params, mb, v), s)
+                                            for mb, s in _micro_batches(batch, num_micro)))
 
 
 def grad_microbatched(loss_fn: LossFn, params: Tree, batch,
                       num_micro: int) -> Tree:
     """Gradient summed over micro-batches (same exactness as
     :func:`hvp_microbatched`)."""
-    return _accumulate((grad(loss_fn, params, mb), s)
-                       for mb, s in _micro_batches(batch, num_micro))
+    return meshlib.all_sum_tree(_accumulate((_value_and_grad(loss_fn, params, mb)[1], s)
+                                            for mb, s in _micro_batches(batch, num_micro)))
 
 
 def vghv_microbatched(loss_fn: LossFn, params: Tree, batch, v: Tree,
@@ -196,5 +223,5 @@ def vghv_microbatched(loss_fn: LossFn, params: Tree, batch, v: Tree,
     """``v^T (grad H) v`` summed over micro-batches: the third-order pass
     holds the largest residual set, so the ``hvp_micro`` memory bound
     must hold here too."""
-    return _accumulate((vghv(loss_fn, params, mb, v), s)
-                       for mb, s in _micro_batches(batch, num_micro))
+    return meshlib.all_sum_tree(_accumulate((_vghv(loss_fn, params, mb, v), s)
+                                            for mb, s in _micro_batches(batch, num_micro)))

@@ -30,6 +30,11 @@ two-pass reorthogonalisation ``V.T @ (V @ w)`` is ``torch.matmul``.  The
 ``(m, m)`` tridiagonal ``eigh`` runs on the host in that dtype: the
 adaptive solver reads ``alpha_j, beta_j`` back once per depth for its
 stop test, as the power iteration reads its test once per HVP.
+
+Under a data-parallel mesh (``parallel/mesh.py``) the operator returns
+all-reduced products, and every stop, breakdown and convergence decision
+goes through ``mesh.agree``: one collective decides for all ranks, so no
+rank leaves a loop that another continues.
 """
 
 from __future__ import annotations
@@ -40,6 +45,7 @@ from typing import Callable, NamedTuple, Optional, Union
 import numpy as np
 import torch
 
+from optwboundeigenval_tpu_torch.parallel import mesh as meshlib
 from optwboundeigenval_tpu_torch.utils.tree import (
     Tree,
     tree_axpy,
@@ -127,7 +133,7 @@ def power_iteration(
                            tree_norm(tree_axpy(1.0, r, r_old))).to(sdtype)
         stop2 = torch.where(n_old != 0, rn / n_old, inf)
         stop3 = torch.where(lam_old != 0, (lam - lam_old).abs() / lam_old, inf)
-        done = bool((n < eps) | (stop2 < eps) | (stop3 < eps))  # host sync
+        done = meshlib.agree(bool((n < eps) | (stop2 < eps) | (stop3 < eps)))  # host sync
         i += 1
         if done:
             # the reference breaks before the update: keep the v whose
@@ -217,7 +223,7 @@ def subspace_iteration(
         evals, U = evals[order], U[:, order]
         ritz, ritz_W = U.T @ V, U.T @ W
         resid = torch.linalg.norm(ritz_W - evals[:, None] * ritz, dim=1)
-        done = bool((resid < eps).all())  # host sync
+        done = meshlib.agree(bool((resid < eps).all()))  # host sync
         i += 1
         if not done:
             V = orthonormalize(ritz_W)
@@ -339,7 +345,7 @@ def lanczos_dominant(
         iters = m + 1
     else:
         norm, iters = est.to(V.device), m
-    converged = bool(norm < eps) or dlam_rel < eps
+    converged = meshlib.agree(bool(norm < eps) or dlam_rel < eps)
     return PowerIterResult(rho=lam.abs().to(V.device), v=unravel(v_flat.to(flat0.dtype)),
                            norm=norm, res_change=est.to(V.device), iters=iters,
                            converged=converged)
@@ -376,7 +382,7 @@ def lanczos_dominant_adaptive(
     while j < m_max and not done:
         w, alpha, beta = _lanczos_step(mv, V, j, q, q_prev, beta_prev)
         alpha_h, beta_h = torch.stack([alpha, beta]).cpu()  # host sync
-        live = bool(beta_h > 1e-12)
+        live = meshlib.agree(bool(beta_h > 1e-12))
         beta_rec = beta_h if live else torch.zeros_like(beta_h)
         q_prev, q = q, (w / torch.clamp_min(beta, 1e-30) if live else torch.zeros_like(w))
         beta_prev = beta_rec.item()
@@ -393,7 +399,7 @@ def lanczos_dominant_adaptive(
         dlam_rel = ((lam_j.abs() - lam_prev.abs()).abs() / lam_prev.abs()
                     if lam_prev.abs() > 0 else math.inf)
         lam_prev, lam = lam, lam_j
-        done = bool(est < eps) or (j >= 1 and bool(dlam_rel < eps)) or not live
+        done = meshlib.agree(bool(est < eps) or (j >= 1 and bool(dlam_rel < eps)) or not live)
         j += 1
     v_flat = _unit(V.T @ y.to(dev))
     r = mv(v_flat) - lam.to(dev) * v_flat

@@ -28,6 +28,12 @@ there (``torch.matmul``, ``torch.linalg.eigh``).  Sampled "true-Fisher"
 targets (kfac.py:85-96) come from :func:`sample_fisher_targets`, drawn from an
 explicit generator, so a caller can also hand ``capture`` targets drawn
 elsewhere.
+
+Under a data-parallel mesh (``parallel/mesh.py``) the covariances are
+the global batch's: each rank's contraction over its rows, all-reduced,
+with the global example count and weight; sampled targets are drawn for
+the gathered global outputs, the same draw on every rank, and each rank
+keeps its rows.
 """
 
 from __future__ import annotations
@@ -37,6 +43,8 @@ from typing import Dict, NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from optwboundeigenval_tpu_torch.parallel import mesh as meshlib
 
 Tree = Dict[str, torch.Tensor]
 LayerFactors = Dict[str, torch.Tensor]
@@ -65,11 +73,16 @@ def sample_fisher_targets(task, params: Tree, model_state: Tree, batch,
     the sigmoid for the BCE losses on multi-label outputs, categorical of
     the softmax otherwise.  Drawn on the host from ``generator``."""
     out = task.predict(params, model_state, batch)
+    mesh = meshlib.current()
+    first, _ = meshlib.global_rows(len(out))
+    rows = slice(first, first + len(out))
+    if mesh is not None:
+        out = meshlib.all_gather_rows(out, mesh)
     if out.dim() > 1 and task.loss.__name__ in BCE_LOSSES:
         y = torch.bernoulli(torch.sigmoid(out).cpu(), generator=generator)
-        return y.to(out.device, torch.float32)
+        return y[rows].to(out.device, torch.float32)
     probs = torch.softmax(out.double(), dim=-1).cpu()
-    return torch.multinomial(probs, 1, generator=generator)[:, 0].to(out.device)
+    return torch.multinomial(probs, 1, generator=generator)[rows, 0].to(out.device)
 
 
 def capture(task, params: Tree, model_state: Tree, batch,
@@ -117,11 +130,11 @@ def _padding_stats(w, batch: int, dtype, device):
     the total weight (kfac.py:231-246); without weights every row is
     real."""
     if w is None:
-        b = torch.tensor(float(batch), dtype=dtype, device=device)
+        b = meshlib.all_sum(torch.tensor(float(batch), dtype=dtype, device=device))
         return None, b, b
     mask = (w > 0).to(dtype)
-    n = torch.clamp_min(mask.sum(), 1.0)
-    return mask, n, torch.clamp_min(w.to(dtype).sum(), 1e-12)
+    n = torch.clamp_min(meshlib.all_sum(mask.sum()), 1.0)
+    return mask, n, torch.clamp_min(meshlib.all_sum(w.to(dtype).sum()), 1e-12)
 
 
 def _with_bias(a: torch.Tensor) -> torch.Tensor:
@@ -143,13 +156,13 @@ def cov_a(cap: LayerCapture, has_bias: bool) -> torch.Tensor:
         if mask is not None:
             a = a * torch.repeat_interleave(mask, spatial)[:, None]
         a = a / spatial
-        return a.T @ (a / n)
+        return meshlib.all_sum(a.T @ (a / n))
     a = a.reshape(a.shape[0], -1)
     if has_bias:
         a = _with_bias(a)
     if mask is not None:
         a = a * mask[:, None]
-    return a.T @ (a / n)
+    return meshlib.all_sum(a.T @ (a / n))
 
 
 def cov_g(cap: LayerCapture, batch_averaged: bool = True) -> torch.Tensor:
@@ -165,13 +178,13 @@ def cov_g(cap: LayerCapture, batch_averaged: bool = True) -> torch.Tensor:
         if batch_averaged:
             g = g * sum_w
         g = g * spatial
-        return g.T @ (g / (n * spatial))
+        return meshlib.all_sum(g.T @ (g / (n * spatial)))
     g = g.reshape(g.shape[0], -1)
     if mask is not None:
         g = g * mask[:, None]
     if batch_averaged:
         g = g * sum_w
-    return g.T @ (g / n)
+    return meshlib.all_sum(g.T @ (g / n))
 
 
 def _has_bias(params: Tree, name: str) -> bool:

@@ -22,6 +22,7 @@ from optwboundeigenval_tpu_torch.ops.curvature import (
     vghv,
     vghv_microbatched,
 )
+from optwboundeigenval_tpu_torch.parallel import mesh as meshlib
 from optwboundeigenval_tpu_torch.utils.tree import (
     Tree,
     tree_axpy,
@@ -72,7 +73,7 @@ def penalty_and_grad(
     """``g`` and ``grad g`` with the reference's gating; ``num_micro > 1``
     micro-batches the third-order pass."""
     g = penalty(rho, K, Kmin)
-    if not bool(g > 0):  # host sync
+    if not meshlib.agree(bool(g > 0)):  # host sync
         z = tree_zeros_like(params)
         return SpectralGrad(g=g, grad_g=z, grad_rho=z)
     if num_micro > 1:

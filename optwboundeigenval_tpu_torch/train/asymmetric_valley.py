@@ -18,6 +18,9 @@ asymmetric_valley.py:15-345):
   plots into ``plot_dir`` when matplotlib imports (a line on standard
   output says when it does not);
 * checkpoints ``<header2>_av_<tag>.pt`` holding the SGD and SWA weights.
+
+Its epochs, evaluations and BatchNorm averaging are loops of their own,
+written for one process: a ``mesh`` raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -54,6 +57,8 @@ class AsymmetricValleyTrainer(SpectralTrainer):
                  swa_lr: float = 0.05, eval_freq: int = 5, save_freq: int = 5,
                  division_part: int = 40, distances: int = 20, max_iter: int = 250,
                  plot_dir: str = "./plots", **kw):
+        if kw.get("mesh") is not None:
+            raise ValueError("the Asymmetric Valley trainer runs in one process: no mesh")
         super().__init__(task, optimizer, scheduler, max_iter=max_iter, **kw)
         self.swa = swa
         self.swa_start = swa_start

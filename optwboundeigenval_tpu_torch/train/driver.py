@@ -33,8 +33,14 @@ own keywords (``swa_start``, ``sgd_start``, ...) beside the trainer's
 an Asymmetric Valley argument nor one the driver reads raises, so a
 setting the port does not implement is never dropped without a word.
 ``has_dropout=True`` builds a dropout ``Task``: the trainer draws one
-dropout key a step (``models/dropout.py``).  The JAX driver's
-``device_data`` is not ported and raises when set.
+dropout key a step (``models/dropout.py``).  ``device_data=True`` puts
+the train set on the trainer's device (``data/device.as_device_loader``,
+with ``device_transform`` and ``device_augment``, e.g.
+``cifar_augment_device`` in place of a host augmentation; a
+``PrefetchLoader`` around the train loader is dropped); a train loader
+that is not an ``ArrayLoader`` then raises (JAX driver.py:106-120 keeps
+it on the host without a word).  ``mesh`` is the trainer's
+(``parallel/mesh.py``).
 """
 
 from __future__ import annotations
@@ -48,6 +54,7 @@ import numpy as np
 from optwboundeigenval_tpu_torch.analysis.comp import comp_test
 from optwboundeigenval_tpu_torch.analysis.jaccard import jaccard_audit, jaccard_comp
 from optwboundeigenval_tpu_torch.analysis.saliency import saliency_maps
+from optwboundeigenval_tpu_torch.data.device import as_device_loader
 from optwboundeigenval_tpu_torch.data.loaders import ArrayLoader
 from optwboundeigenval_tpu_torch.models.backbones import load_pretrained_npz
 from optwboundeigenval_tpu_torch.train.asymmetric_valley import AsymmetricValleyTrainer
@@ -70,11 +77,10 @@ _DRIVER_KEYS = {
     "classes", "model_classes", "other_classes",
     # data facts the Forest loader returns beside its arrays
     "scaler_mean", "scaler_scale",
+    # the train set on the device
+    "device_data", "device_transform", "device_augment",
 }
 _TEST_KEYS = ("classes", "model_classes", "other_classes")
-# the JAX driver's options whose code is not ported yet; inert when unset,
-# None or False
-_UNPORTED = ("device_data",)
 
 
 def arg_dic(fn, options: Dict[str, Any], replace=None) -> Dict[str, Any]:
@@ -90,12 +96,9 @@ def arg_dic(fn, options: Dict[str, Any], replace=None) -> Dict[str, Any]:
 
 
 def _check_known(options: Dict[str, Any]) -> None:
-    for k in _UNPORTED:
-        if options.get(k):
-            raise NotImplementedError(f"option {k}={options[k]!r} is not ported")
     known = (set(inspect.signature(SpectralTrainer.__init__).parameters)
              | set(inspect.signature(AsymmetricValleyTrainer.__init__).parameters)
-             | set(_REPLACE) | _DRIVER_KEYS | set(_UNPORTED))
+             | set(_REPLACE) | _DRIVER_KEYS)
     unknown = sorted(set(options) - known)
     if unknown:
         raise NotImplementedError(f"options {unknown} are not known to the port")
@@ -156,6 +159,16 @@ def run(options: Dict[str, Any]) -> SpectralTrainer:
     trainer = build_trainer(options)
     train_loader, valid_loader, test_loaders = _loaders(
         options, options.get("batch_size", 128))
+    if options.get("device_data"):
+        # a prefetch thread hides host batch assembly, which the device
+        # dataset does away with
+        train_loader = getattr(train_loader, "loader", train_loader)
+        if not isinstance(train_loader, ArrayLoader):
+            raise ValueError("device_data=True needs an ArrayLoader train loader, "
+                             f"not {type(train_loader).__name__}")
+        train_loader = as_device_loader(train_loader, transform=options.get("device_transform"),
+                                        augment=options.get("device_augment"),
+                                        device=trainer.device)
     train_loader_na = options.get("train_loader_na")
     crops = options.get("crops", False)
 

@@ -25,6 +25,10 @@ is ignored, and a model with active dropout raises in train mode.
 
 Batches are dicts ``{"x", "y", "w"}``; ``w`` weights each example and
 carries ``w = 0`` on padded rows, so every loss is a weighted mean.
+Under a data-parallel mesh (``parallel/mesh.py``, ``active``) a loss is
+this rank's share of the global batch's: its rows' weighted sum over the
+all-reduced total weight (W-BCE's class counts all-reduced too), so the
+ranks' shares sum to the one-device loss.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ from torch import nn
 from torch.func import functional_call
 
 from optwboundeigenval_tpu_torch.models import dropout
+from optwboundeigenval_tpu_torch.parallel import mesh as meshlib
 
 Tree = Dict[str, torch.Tensor]
 
@@ -45,9 +50,13 @@ Tree = Dict[str, torch.Tensor]
 def _weighted_mean(per_example: torch.Tensor,
                    w: Optional[torch.Tensor]) -> torch.Tensor:
     if w is None:
-        return per_example.mean()
+        if meshlib.current() is None:
+            return per_example.mean()
+        n = meshlib.all_sum(torch.tensor(float(per_example.numel()), dtype=per_example.dtype,
+                                         device=per_example.device))
+        return per_example.sum() / n
     w = w.to(per_example.dtype)
-    return (per_example * w).sum() / torch.clamp_min(w.sum(), 1e-12)
+    return (per_example * w).sum() / torch.clamp_min(meshlib.all_sum(w.sum()), 1e-12)
 
 
 def _pick(values: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -94,8 +103,8 @@ def weighted_bce_with_logits(outputs, y, w=None):
     if w is not None:
         valid = valid & (w[:, None] > 0)
     y0 = torch.where(valid, y, torch.zeros_like(y))
-    p = y0.sum()
-    s = valid.sum().to(outputs.dtype)
+    p = meshlib.all_sum(y0.sum())
+    s = meshlib.all_sum(valid.sum().to(outputs.dtype))
     degenerate = (p == 0) | (p == s)
     one = torch.ones_like(p)
     w_pos = torch.where(degenerate, 2.0 * one, s / torch.where(p == 0, one, p))
@@ -104,7 +113,7 @@ def weighted_bce_with_logits(outputs, y, w=None):
     elt = -weight * (y0 * F.logsigmoid(outputs)
                      + (1.0 - y0) * F.logsigmoid(-outputs))
     elt = torch.where(valid, elt, torch.zeros_like(elt))
-    cnt = valid.sum(dim=0)
+    cnt = meshlib.all_sum(valid.sum(dim=0))
     per_class = elt.sum(dim=0) / torch.clamp_min(cnt, 1)
     has_any = cnt > 0
     return (torch.where(has_any, per_class, torch.zeros_like(per_class)).sum()

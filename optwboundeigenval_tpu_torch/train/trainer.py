@@ -43,10 +43,45 @@ State ``(params, model_state, opt_state, v)`` is carried explicitly as
 dicts of tensors.  Entry points run on the card: ``device=None`` means
 ``cuda``, and a machine without one raises; pass ``device="cpu"`` to run
 on the CPU.
+
+Execution knobs (JAX trainer lines 241-288), each leaving the trajectory
+as it is:
+
+* ``scan_steps = k > 1`` with ``defer_metrics``, not ``verbose`` and no
+  preconditioner (else the per-step path runs, as in JAX): the epoch's
+  steps run in chunks of ``k`` batches, each chunk moved to the device in
+  one stacked transfer (pinned host memory, ``non_blocking``; a
+  ``torch.stack`` on the device for device-resident batches) and its
+  steps run back to back with no host read of their metrics, the
+  dropout keys drawn in the per-step order.  The epoch-end ``f`` is
+  computed chunk by chunk, per-batch losses on the device, times the
+  host weights, summed on the host.  What JAX makes one program per chunk
+  stays ``k`` steps here: the eigensolvers test their stop on the host
+  every iteration (``ops/eigen.py``), so a chunk cannot be one launch;
+  a stop test on the device is an open performance question.
+* ``donate``: the committed ``params``, ``model_state``, ``opt_state`` and
+  ``v`` keep their storage across steps (each step's result is copied
+  into it, ``data_ptr()`` unchanged), the counterpart of XLA's buffer
+  donation; as in JAX a fetched step whose norms are not finite then
+  commits anyway (recovery is the checkpoint reload), and the
+  ``defer_metrics`` epoch-start snapshot is a clone.
+* ``mem_track``: the running maximum of ``torch.cuda.memory_allocated``
+  after each step (0 on the CPU), printed as the JAX trainer prints it.
+* ``profile_dir``/``profile_epoch``: that epoch runs under
+  ``torch.profiler`` (CPU and, on the card, CUDA activity) and its Chrome
+  trace goes to ``<profile_dir>/<header2>_epoch<i>.json``.
+* ``mesh`` (``parallel/mesh.py``): data parallelism over a process
+  group.  Each rank's batches are its rows of the global batch, the
+  state is broadcast from rank 0 at ``init_state``, ``resume`` and
+  ``model_load``, the losses, curvature products, BatchNorm statistics,
+  K-FAC statistics and eigensolver decisions reduce over the ranks
+  (``active``), ``test_model`` gathers each rank's outputs, and rank 0
+  alone writes logs and checkpoints.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 import os
 import time
@@ -59,6 +94,7 @@ from optwboundeigenval_tpu_torch.data.loaders import ArrayLoader
 from optwboundeigenval_tpu_torch.models import dropout
 from optwboundeigenval_tpu_torch.ops import curvature, eigen, kfac, spectral
 from optwboundeigenval_tpu_torch.optim.api import Optimizer
+from optwboundeigenval_tpu_torch.parallel import mesh as meshlib
 from optwboundeigenval_tpu_torch.train import checkpoints
 from optwboundeigenval_tpu_torch.train.task import Task
 from optwboundeigenval_tpu_torch.utils.timing import Timers
@@ -80,12 +116,39 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
-# options of the JAX trainer that this port does not implement yet, with
-# the value under which they are inert
-_UNPORTED = {
-    "scan_steps": 1, "mesh": None, "donate": False, "mem_track": False,
-    "profile_dir": None, "profile_epoch": 0,
-}
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    return a.type == b.type and (a.index or 0) == (b.index or 0)
+
+
+def _copy_into(old, new):
+    """``new``'s values in ``old``'s storage: tensors copied in place,
+    nested dicts recursively, anything else (numbers, a tensor of another
+    shape) replaced; returns ``old``."""
+    for k, t in new.items():
+        o = old.get(k)
+        if isinstance(t, dict) and isinstance(o, dict):
+            _copy_into(o, t)
+        elif (isinstance(t, torch.Tensor) and isinstance(o, torch.Tensor)
+              and o.shape == t.shape and o.dtype == t.dtype and o is not t):
+            o.copy_(t)
+        elif o is not t:
+            old[k] = t
+    return old
+
+
+def _clone(tree):
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    return tree.clone() if isinstance(tree, torch.Tensor) else tree
+
+
+def _on_mesh(method):
+    """Run ``method`` with the trainer's mesh active (``parallel/mesh.py``)."""
+    @functools.wraps(method)
+    def run(self, *args, **kwargs):
+        with meshlib.active(self.mesh):
+            return method(self, *args, **kwargs)
+    return run
 
 CKPT = "_trained_model.pt"
 CKPT_BEST = "_trained_model_best.pt"
@@ -168,9 +231,9 @@ def confusion_matrix(y_true: np.ndarray, y_pred: np.ndarray) -> np.ndarray:
 class SpectralTrainer:
     """The JAX trainer's constructor (reference opt.py:239-316).  ``mu``
     is a scalar or a callable of the epoch index; ``pow_iter_alpha`` a
-    scalar or a callable of the power-iteration index.  The options of
-    ``_UNPORTED`` raise ``NotImplementedError`` when set to anything but
-    their inert value."""
+    scalar or a callable of the power-iteration index.  Under a ``mesh``
+    the trainer runs on the mesh's device (``device``, if given, must be
+    it)."""
 
     def __init__(
         self,
@@ -220,12 +283,13 @@ class SpectralTrainer:
         model_dir: str = "./models",
         device=None,
     ):
-        given = locals()
-        for name, inert in _UNPORTED.items():
-            if given[name] != inert:
-                raise NotImplementedError(
-                    f"SpectralTrainer({name}={given[name]!r}) is not ported")
+        if mesh is not None:
+            if device is not None and not _same_device(resolve_device(device), mesh.device):
+                raise ValueError(f"device={device!r} is not the mesh's {mesh.device}")
+            device = mesh.device
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self._writer = mesh is None or mesh.writer
         self.task = task
         self.optimizer = optimizer
         self.scheduler = scheduler
@@ -282,6 +346,12 @@ class SpectralTrainer:
         self._dropout_draws = 0  # dropout keys drawn so far (_dropout_key)
         self.log_dir = log_dir
         self.model_dir = model_dir
+        self.mem_track = mem_track
+        self.mem_max = 0  # running max of the device memory allocated
+        self.scan_steps = int(scan_steps)
+        self.donate = donate
+        self.profile_dir = profile_dir
+        self.profile_epoch = profile_epoch
 
         # file stem: header_OptName[_btchN]_muM_KX[_KminY] (opt.py:290-302)
         mname = "Func" if callable(mu) else str(mu)
@@ -330,6 +400,29 @@ class SpectralTrainer:
             self.opt_state = self.optimizer.build_extra_state(
                 self.opt_state, self.task, self.params, self.model_state)
         self.v = tree_uniform_like(self.params)
+        self._replicate()
+
+    def _replicate(self) -> None:
+        """Under a mesh, rank 0's state on every rank."""
+        for tree in (self.params, self.model_state, self.opt_state, self.v):
+            meshlib.replicate(tree, self.mesh)
+
+    def _broadcast(self, obj):
+        """Rank 0's ``obj`` on every rank of the mesh (``obj`` without one)."""
+        return meshlib.broadcast_object(obj, self.mesh)
+
+    def mem_check(self) -> int:
+        """The running maximum of the device memory allocated
+        (``torch.cuda.memory_allocated``, XLA's ``bytes_in_use``; 0 on the
+        CPU), printed when it grows (opt.py:318-322)."""
+        if not self.mem_track:
+            return self.mem_max
+        used = (torch.cuda.memory_allocated(self.device)
+                if self.device.type == "cuda" else 0)
+        if used > self.mem_max:
+            self.mem_max = used
+            print(f"Running Max device memory used (in bytes): {used}")
+        return self.mem_max
 
     @property
     def ndim(self) -> int:
@@ -441,13 +534,17 @@ class SpectralTrainer:
         603-618): ``(loss, error %)`` of the eval-mode outputs on the
         batch, the error in float32 as the JAX package computes it."""
         out = self.task.predict(params, model_state, batch)
-        loss = self.task.loss(out, batch["y"], batch.get("w"))
+        loss = meshlib.all_sum(self.task.loss(out, batch["y"], batch.get("w")))
         y, w = batch["y"], batch.get("w")
         if out.dim() > 1 and y.dim() > 1:  # multi-label
             correct = ((out > 0) == (y > 0.5)).to(torch.float32).mean(dim=-1)
         else:
             correct = (out.argmax(dim=-1) == y).to(torch.float32)
-        if w is None:
+        if meshlib.current() is not None:  # the global batch's
+            w = torch.ones_like(correct) if w is None else w.to(torch.float32)
+            num, den = meshlib.all_sum(torch.stack([(correct * w).sum(), w.sum()]))
+            acc = num / torch.clamp_min(den, 1e-12)
+        elif w is None:
             acc = correct.mean()
         else:
             w = w.to(torch.float32)
@@ -491,6 +588,17 @@ class SpectralTrainer:
             return model_state
         return self.task.train_loss(params, model_state, batch, key)[1]
 
+    def _kept(self, old, new):
+        """``new``, under ``donate`` in the storage of ``old``."""
+        return _copy_into(old, new) if self.donate else new
+
+    def _commit(self, params, model_state, opt_state, v) -> None:
+        """Make a step's result the trainer's state."""
+        self.params, self.model_state, self.opt_state, self.v = (
+            self._kept(self.params, params), self._kept(self.model_state, model_state),
+            self._kept(self.opt_state, opt_state), self._kept(self.v, v))
+
+    @_on_mesh
     def train_step(self, batch: Dict[str, Any], mu: Optional[float] = None,
                    fetch: bool = True) -> Dict[str, Any]:
         """Run ONE spectral-regularized step on ``batch`` and commit the
@@ -498,9 +606,11 @@ class SpectralTrainer:
 
         Returns the metrics as host values plus ``step_ok``.  A step whose
         gradient norms are not finite is NOT committed (the caller
-        decides on a rollback, opt.py:696-708).  ``fetch=False`` (the
-        ``defer_metrics`` path) commits unconditionally and returns the
-        tensor metrics on the device, unread."""
+        decides on a rollback, opt.py:696-708), unless ``donate``: then,
+        as in JAX, it commits and the rollback is the only recovery.
+        ``fetch=False`` (the ``defer_metrics`` path) commits
+        unconditionally and returns the tensor metrics on the device,
+        unread."""
         if self.params is None:
             self.init_state()
         if mu is None:
@@ -512,20 +622,17 @@ class SpectralTrainer:
                               self.v, dev_batch, float(mu), self._precond_state, key)
         new_params, new_model_state, new_opt_state, new_v, metrics = out
         if not fetch:
-            self.params, self.model_state = new_params, new_model_state
-            self.opt_state, self.v = new_opt_state, new_v
+            self._commit(new_params, new_model_state, new_opt_state, new_v)
             return metrics
         # one device-to-host transfer for all tensor metrics
         keys = [k for k, m in metrics.items() if isinstance(m, torch.Tensor)]
         values = torch.stack([metrics[k].to(torch.float64) for k in keys]).tolist()
         metrics.update(zip(keys, values))
-        step_ok = bool(np.isfinite(metrics["gradf_norm"])
-                       and np.isfinite(metrics["gradg_norm"]))
+        step_ok = meshlib.agree(bool(np.isfinite(metrics["gradf_norm"])
+                                     and np.isfinite(metrics["gradg_norm"])))
+        if step_ok or self.donate:
+            self._commit(new_params, new_model_state, new_opt_state, new_v)
         if step_ok:
-            self.params = new_params
-            self.model_state = new_model_state
-            self.opt_state = new_opt_state
-            self.v = new_v
             self.rho = metrics["rho"]
             self.norm = metrics["norm"]
             self.g = metrics["g"]
@@ -547,7 +654,34 @@ class SpectralTrainer:
     # ------------------------------------------------------------------
     # epoch loop (reference iter(), opt.py:580-763)
     # ------------------------------------------------------------------
+    def trace_file(self, epoch: int) -> str:
+        """Where ``profile_dir``'s trace of ``epoch`` goes (one file a rank
+        under a mesh of several)."""
+        rank = f"_rank{self.mesh.rank}" if self.mesh is not None and self.mesh.data > 1 else ""
+        return os.path.join(self.profile_dir, f"{self.header2}_epoch{epoch}{rank}.json")
+
+    @_on_mesh
     def iter_epoch(self, train_loader: ArrayLoader) -> None:
+        loader_device = getattr(train_loader, "device", None)
+        if loader_device is not None and not _same_device(torch.device(loader_device),
+                                                          self.device):
+            raise ValueError(f"the train loader's data are on {loader_device}, "
+                             f"the trainer runs on {self.device}")
+        if not (self.profile_dir and self.i == self.profile_epoch):
+            self._iter_epoch_body(train_loader)
+            return
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        with torch.profiler.profile(activities=activities) as prof:
+            self._iter_epoch_body(train_loader)
+        os.makedirs(self.profile_dir, exist_ok=True)
+        path = self.trace_file(self.i)
+        prof.export_chrome_trace(path)
+        if not os.path.isfile(path):  # the exporter logs a failure and returns
+            raise RuntimeError(f"torch.profiler wrote no trace to {path}")
+
+    def _iter_epoch_body(self, train_loader) -> None:
         mu = self._mu_now()
         rbatch = int(self._np_rng.integers(0, max(len(train_loader), 1)))
         rdata = None
@@ -559,10 +693,17 @@ class SpectralTrainer:
         if defer:
             # the recovery point if a deferred step turns out non-finite:
             # steps return new tensors, so holding the old dicts is a copy
-            # (the preconditioner too: its refits read the committed params)
+            # (the preconditioner too: its refits read the committed
+            # params); a donated state is overwritten in place, so then
+            # it is a clone
             snapshot = (self.params, self.model_state, self.opt_state, self.v,
                         self._precond_state, self._kfac_iter)
-        for j, data in enumerate(train_loader):
+            if self.donate:
+                snapshot = tuple(_clone(t) for t in snapshot[:4]) + snapshot[4:]
+        use_scan = self.scan_steps > 1 and defer and self.precond_builder is None
+        if use_scan:
+            rdata = self._scan_epoch_steps(train_loader, mu, rbatch, deferred)
+        for j, data in (() if use_scan else enumerate(train_loader)):
             if j == rbatch:
                 rdata = data
             with self.timers("G"):
@@ -570,13 +711,15 @@ class SpectralTrainer:
             self.epoch_pow_iters.append(metrics["pow_iters"])
             if defer:
                 deferred.append(metrics)
+                self.mem_check()
                 continue
             # NaN rollback: reload the last epoch checkpoint (opt.py:696-708)
             if not metrics["step_ok"]:
                 ckpt = os.path.join(self.model_dir, self.header2 + CKPT)
-                if os.path.exists(ckpt):
+                if self._broadcast(os.path.exists(ckpt)):
                     self.model_load(ckpt)
                 continue
+            self.mem_check()
             if self.verbose:
                 vlog.append(f"{j}\t {self.rho:f}\t {self.norm:f}\t "
                             f"{metrics['gradf_norm']:f}\t "
@@ -584,40 +727,42 @@ class SpectralTrainer:
         if defer and deferred:
             # ONE host read per epoch; on any non-finite step restore the
             # epoch-start state (params AND optimizer buffers)
-            norms = torch.stack([torch.stack([m["gradf_norm"], m["gradg_norm"]])
-                                 for m in deferred])
-            if not bool(torch.isfinite(norms).all()):
+            norms = torch.cat([torch.stack([m["gradf_norm"], m["gradg_norm"]]).reshape(-1)
+                               for m in deferred])
+            if not meshlib.agree(bool(torch.isfinite(norms).all())):
                 (self.params, self.model_state, self.opt_state, self.v,
                  self._precond_state, self._kfac_iter) = snapshot
 
         if self.epoch_pow_iters:
             self.mean_pow_iters = float(np.mean(self.epoch_pow_iters))
         if self.verbose:
-            os.makedirs(self.log_dir, exist_ok=True)
-            with open(self.verbose_log_file, "w" if self.i == 0 else "a") as fh:
-                if self.i == 0:
-                    fh.write("batch\t rho\t norm\t gradf\t gradg\n")
-                fh.write("\n".join(vlog) + "\n")
+            head = "batch\t rho\t norm\t gradf\t gradg\n" if self.i == 0 else ""
+            self._write(self.verbose_log_file, head + "\n".join(vlog) + "\n",
+                        "w" if self.i == 0 else "a")
 
         # epoch end: weighted-mean f over all batches in eval mode
         # (opt.py:730-739), g on one random batch (opt.py:740)
         with self.timers("Test"):
-            f_sum, w_sum = 0.0, 0.0
-            for data in train_loader:
-                loss, _ = self.task.eval_loss(self.params, self.model_state,
-                                              self.put_batch(data))
-                bw = float(np.sum(data["w"]))
-                f_sum = f_sum + loss * bw
-                w_sum += bw
-            self.f = float(f_sum) / max(w_sum, 1.0)
+            if use_scan:
+                self.f = self._scan_epoch_eval(train_loader)
+            else:
+                f_sum, w_sum = 0.0, 0.0
+                for data in train_loader:
+                    loss, _ = self.task.eval_loss(self.params, self.model_state,
+                                                  self.put_batch(data))
+                    loss, bw = meshlib.all_sum(loss), self._global_weight(data["w"])
+                    f_sum = f_sum + loss * bw
+                    w_sum += bw
+                self.f = float(f_sum) / max(w_sum, 1.0)
 
         if self.pow_iter and rdata is not None:
             batch = self.put_batch(rdata)
             # the kfac_batch counter ticks on every comp_rho, this one too
             # (opt.py:426-430), so the refit cadence shifts one slot an epoch
             self._refresh_precond(batch)
-            eig, self.model_state = self._rho_step(batch)
-            self.v = eig.v
+            eig, model_state = self._rho_step(batch)
+            self.v, self.model_state = self._kept(self.v, eig.v), self._kept(self.model_state,
+                                                                             model_state)
             self.rho = float(eig.rho)
             self.norm = float(eig.norm)
             self.g = float(spectral.penalty(
@@ -631,8 +776,97 @@ class SpectralTrainer:
         self.timers.totals["Iteration"] = (self.timers.totals.get("Iteration", 0.0)
                                            + time.perf_counter() - istart)
         if self.verbose:
-            with open(self.verbose_log_file, "a") as fh:
-                fh.write(self.timers.report(["G", "Test", "Iteration"]) + "\n")
+            self._write(self.verbose_log_file,
+                        self.timers.report(["G", "Test", "Iteration"]) + "\n")
+
+    def _global_weight(self, w) -> float:
+        """``sum(w)`` of a batch, over the ranks of an active mesh."""
+        if meshlib.current() is None:
+            return float(np.sum(w))
+        return float(meshlib.all_sum(torch.tensor(float(np.sum(w)), dtype=torch.float64,
+                                                  device=self.device)))
+
+    # ------------------------------------------------------------------
+    # chunks of scan_steps batches (JAX trainer lines 1063-1130)
+    # ------------------------------------------------------------------
+    def _put_stacked(self, batches) -> Dict[str, torch.Tensor]:
+        """``k`` batches stacked along a new leading axis on the device in
+        one transfer each entry: host arrays through pinned memory with
+        ``non_blocking``, device tensors by ``torch.stack`` there."""
+        out = {}
+        for k, first in batches[0].items():
+            if isinstance(first, torch.Tensor):
+                out[k] = torch.stack([b[k] for b in batches]).to(self.device)
+                continue
+            host = torch.from_numpy(np.stack([np.asarray(b[k]) for b in batches]))
+            if self.device.type == "cuda":
+                host = host.pin_memory()
+            out[k] = host.to(self.device, non_blocking=True)
+        return out
+
+    def _scan_epoch_steps(self, train_loader, mu, rbatch, deferred):
+        """The epoch's steps in chunks of ``scan_steps`` batches (a short
+        last chunk too); returns the epoch's random batch."""
+        rdata, buf = None, []
+        for j, data in enumerate(train_loader):
+            if j == rbatch:
+                rdata = data
+            buf.append(data)
+            if len(buf) == self.scan_steps:
+                self._run_scan_chunk(buf, mu, deferred)
+                buf = []
+        if buf:
+            self._run_scan_chunk(buf, mu, deferred)
+        return rdata
+
+    def _run_scan_chunk(self, buf, mu, deferred) -> None:
+        """One chunk: its batches in one stacked transfer, its dropout keys
+        in the per-step order, its steps back to back, committed without a
+        host read; the chunk's norms stay on the device."""
+        if self.params is None:
+            self.init_state()
+        stacked = self._put_stacked(buf)
+        keys = [self._dropout_key() for _ in buf]
+        gradf, gradg = [], []
+        with self.timers("G"):
+            for i, key in enumerate(keys):
+                batch = {k: t[i] for k, t in stacked.items()}
+                *state, metrics = self._step_body(self.params, self.model_state,
+                                                  self.opt_state, self.v, batch,
+                                                  float(mu), None, key)
+                self._commit(*state)
+                gradf.append(metrics["gradf_norm"])
+                gradg.append(metrics["gradg_norm"])
+                self.epoch_pow_iters.append(metrics["pow_iters"])
+        deferred.append({"gradf_norm": torch.stack(gradf), "gradg_norm": torch.stack(gradg)})
+        self.mem_check()
+
+    def _scan_epoch_eval(self, train_loader) -> float:
+        """The epoch-end weighted-mean ``f`` chunk by chunk: each chunk's
+        per-batch losses stay on the device until every chunk has run,
+        then times the host weights, summed on the host (JAX trainer
+        lines 1105-1130)."""
+        chunks, buf = [], []
+
+        def flush():
+            stacked = self._put_stacked(buf)
+            losses = torch.stack([
+                self.task.eval_loss(self.params, self.model_state,
+                                    {k: t[i] for k, t in stacked.items()})[0]
+                for i in range(len(buf))])
+            chunks.append((meshlib.all_sum(losses),
+                           np.asarray([self._global_weight(b["w"]) for b in buf])))
+            buf.clear()
+
+        for data in train_loader:
+            buf.append(data)
+            if len(buf) == self.scan_steps:
+                flush()
+        if buf:
+            flush()
+        f_sum = sum(float(np.sum(l.cpu().numpy() * b)) for l, b in chunks)
+        w_sum = sum(float(np.sum(b)) for _, b in chunks)
+        return f_sum / max(w_sum, 1.0)
 
     # ------------------------------------------------------------------
     # full training (reference train(), opt.py:771-871)
@@ -660,9 +894,8 @@ class SpectralTrainer:
         has_valid = valid_loader is not None
         start_epoch, self._resume_epoch = self._resume_epoch, 0
         if start_epoch == 0 or not os.path.exists(self.log_file):
-            with open(self.log_file, "w") as fh:
-                fh.write("epoch\t f\t rho\t h\t norm"
-                         + ("\t val_acc\t val_f1" if has_valid else "") + "\n")
+            self._write(self.log_file, "epoch\t f\t rho\t h\t norm"
+                        + ("\t val_acc\t val_f1" if has_valid else "") + "\n", "w")
         if start_epoch == 0:
             self._h_hist = []
         for self.i in range(start_epoch, self.max_iter):
@@ -683,8 +916,7 @@ class SpectralTrainer:
                     self.best_val_acc = self.val_acc
                     self._new_best()
                 row += f"\t {self.val_acc:f}\t {val_f1:f}"
-            with open(self.log_file, "a") as fh:
-                fh.write(row + "\n")
+            self._write(self.log_file, row + "\n")
             self._h_hist.append(float(self.h))
             # after the append, so the checkpoint's CoV window holds this
             # epoch (the JAX trainer saves first, and a resume from its
@@ -696,24 +928,34 @@ class SpectralTrainer:
             # (opt.py:841-845); eps defaults to -1, which never stops
             if self.i >= self.min_iter - 1 and len(self._h_hist) >= 2:
                 window = self._h_hist[-10:]
-                if float(np.std(window) / np.abs(np.mean(window))) <= self.eps:
+                if self._agree(float(np.std(window) / np.abs(np.mean(window))) <= self.eps):
                     break
 
         elapsed = time.time() - start
-        with open(self.log_file, "a") as fh:
-            fh.write(f"Time elapsed: {elapsed // 3600:2.0f} hrs, "
-                     f"{(elapsed % 3600) // 60:2.0f} min, {elapsed % 60:4.2f} sec\n")
-            fh.write(f"Best Iterate: {self.best_iter}\n")
-            if self.best_h_val:
-                fh.write(f"Best H: {self.best_h}\n")
-            else:
-                fh.write(f"Best Validation Accuracy: {self.best_val_acc}\n")
-            fh.write(f"Rho: {self.best_rho}\n")
+        best = (f"Best H: {self.best_h}" if self.best_h_val
+                else f"Best Validation Accuracy: {self.best_val_acc}")
+        self._write(self.log_file,
+                    f"Time elapsed: {elapsed // 3600:2.0f} hrs, "
+                    f"{(elapsed % 3600) // 60:2.0f} min, {elapsed % 60:4.2f} sec\n"
+                    f"Best Iterate: {self.best_iter}\n{best}\nRho: {self.best_rho}\n")
 
         # the best model on the train set (opt.py:868-871)
         if has_valid:
             self.test_set(loader=train_loader_na if train_loader_na is not None
                           else train_loader, label="Train", crops=crops)
+
+    def _write(self, path: str, text: str, mode: str = "a") -> None:
+        """Write ``text`` to the log ``path``; under a mesh rank 0 alone
+        writes."""
+        if self._writer:
+            os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+            with open(path, mode) as fh:
+                fh.write(text)
+
+    def _agree(self, flag: bool) -> bool:
+        """A host decision taken once for every rank of the mesh."""
+        with meshlib.active(self.mesh):
+            return meshlib.agree(flag)
 
     def _new_best(self):
         self.best_rho = self.rho
@@ -744,25 +986,24 @@ class SpectralTrainer:
         ``other_classes`` keeps, in the AUC, the rows whose NaN-skipping
         count of positives outside ``classes`` is one of them.  A 5-D
         batch under ``crops`` is ``(B, crops, H, W, C)``, and the outputs
-        are the mean over its crops."""
+        are the mean over its crops.
+
+        Under a mesh of several ranks each rank runs its own rows and the
+        outputs are gathered (:meth:`_eval_outputs_sharded`), so every rank
+        returns the one-device metrics."""
         if loader is None:
             loader = _as_loader((x, y), self.batch_size)
         if isinstance(other_classes, int):
             other_classes = [other_classes]
+        if self.mesh is not None and self.mesh.data > 1:
+            loader = self._eval_outputs_sharded(loader, crops)
         tf = self.test_func
         f_list, acc_list, f1_list, sizes = [], [], [], []
         outputs_all, labels_all, oc = [], [], []
         for data in loader:
             nreal = int(np.sum(np.asarray(data["w"]) > 0))
-            batch = self.put_batch(data)
-            xb = batch["x"]
-            if crops and xb.dim() == 5:
-                flat = {**batch, "x": xb.reshape((-1,) + tuple(xb.shape[2:]))}
-                out = self.task.predict(self.params, self.model_state, flat)
-                out = out.reshape(xb.shape[0], xb.shape[1], -1).mean(dim=1)
-            else:
-                out = self.task.predict(self.params, self.model_state, batch)
-            ops = out.cpu().numpy()[:nreal]
+            ops = (data["ops"] if "ops" in data
+                   else self._predict(data, crops).cpu().numpy())[:nreal]
             target = np.asarray(data["y"])[:nreal]
             sizes.append(nreal)
             if other_classes is not None and classes is not None:
@@ -801,14 +1042,71 @@ class SpectralTrainer:
             test_acc, test_f1 = float(np.nanmean(roc)), float(np.mean(f1s))
         elif "conf" in tf:
             cm = confusion_matrix(np.concatenate(labels_all), np.concatenate(outputs_all))
-            os.makedirs(self.log_dir, exist_ok=True)
-            np.savetxt(os.path.join(self.log_dir, self.header2 + "_conf_matrix.csv"),
-                       cm, delimiter=",")
+            if self._writer:
+                os.makedirs(self.log_dir, exist_ok=True)
+                np.savetxt(os.path.join(self.log_dir, self.header2 + "_conf_matrix.csv"),
+                           cm, delimiter=",")
             test_acc = test_f1 = None
         else:
             test_acc = float(np.average(acc_list, weights=sizes))
             test_f1 = float(np.average(f1_list, weights=sizes))
         return float(np.average(f_list, weights=sizes)), test_acc, test_f1
+
+    def _predict(self, data, crops: bool = False) -> torch.Tensor:
+        """Eval-mode outputs of a batch; a 5-D batch under ``crops`` is
+        ``(B, crops, H, W, C)`` and gives the mean over its crops."""
+        batch = self.put_batch(data)
+        xb = batch["x"]
+        if crops and xb.dim() == 5:
+            flat = {**batch, "x": xb.reshape((-1,) + tuple(xb.shape[2:]))}
+            out = self.task.predict(self.params, self.model_state, flat)
+            return out.reshape(xb.shape[0], xb.shape[1], -1).mean(dim=1)
+        return self.task.predict(self.params, self.model_state, batch)
+
+    def _eval_is_contributor(self) -> bool:
+        """Whether this rank's evaluation rows count (JAX trainer lines
+        380-413): the lowest rank of each data coordinate contributes, its
+        ``model``-axis replicas would send ``w = 0``.  Ranks lie ``(data,
+        model)`` in order, so that is ``rank % model == 0``, every rank
+        while the ``model`` axis is 1."""
+        return self.mesh.rank % self.mesh.model == 0
+
+    def _eval_outputs_sharded(self, loader, crops: bool = False):
+        """Evaluation over a mesh (JAX trainer lines 415-496): each rank
+        runs the forward pass on its local rows only, and the outputs,
+        labels and weights are gathered, never the inputs.  A
+        ``host_shard`` loader's batches are the rank's rows already; from
+        a loader that gives every rank the same batches each rank takes
+        its stripe of ``ceil(B / ranks)`` rows, the tail clamped and
+        weighted 0.  Rows of weight 0 are dropped after the gather; the
+        outputs keep their dtype (JAX casts them to float32)."""
+        mesh = self.mesh
+        counts = torch.tensor([len(loader)], device=mesh.device)
+        counts = meshlib.all_gather_rows(counts, mesh).tolist()
+        if min(counts) != max(counts):
+            raise ValueError(f"eval loaders yield unequal batch counts {counts} across "
+                             "ranks; pad the dataset so every rank yields as many batches")
+        sharded = getattr(loader, "host_shard", None) is not None
+        contributes = self._eval_is_contributor() if sharded else True
+        for data in loader:
+            w = np.asarray(data["w"], np.float32)
+            data = dict(data)
+            if not sharded:
+                n = len(w)
+                chunk = -(-n // mesh.data)
+                idx = np.arange(mesh.rank * chunk, (mesh.rank + 1) * chunk)
+                valid = idx < n
+                idx = np.minimum(idx, n - 1)
+                data = {k: v[idx] for k, v in data.items()}
+                w = w[idx] * valid
+            if not contributes:
+                w = np.zeros_like(w)
+            ops = self._predict(data, crops)
+            gather = lambda t: meshlib.all_gather_rows(
+                torch.as_tensor(t).to(mesh.device), mesh).cpu().numpy()
+            ops, yb, wb = gather(ops), gather(data["y"]), gather(w)
+            keep = wb > 0
+            yield {"ops": ops[keep], "y": yb[keep], "w": np.ones(int(keep.sum()), np.float32)}
 
     def test_model_best(self, x=None, y=None, loader=None, fname=None, **kw):
         self.model_load(fname)
@@ -816,12 +1114,11 @@ class SpectralTrainer:
 
     def test_set(self, x=None, y=None, loader=None, fname=None, label="Train", **kw):
         loss, acc, f1 = self.test_model_best(x, y, loader, fname, **kw)
-        with open(self.log_file, "a") as fh:
-            fh.write(f"{label} Loss: {loss}\n")
-            fh.write(f"{label} Accuracy: {acc}\n")
-            fh.write(f"{label} F1: {f1}\n")
+        self._write(self.log_file, f"{label} Loss: {loss}\n{label} Accuracy: {acc}\n"
+                    f"{label} F1: {f1}\n")
         return loss, acc, f1
 
+    @_on_mesh
     def rho_test(self, x=None, y=None, loader=None, fname=None):
         """``rho`` on every batch of ``loader`` (opt.py:882-910): writes
         ``<header2>_rho_test.csv`` with rows ``batch, rho, norm, iters,
@@ -841,16 +1138,18 @@ class SpectralTrainer:
             dt = time.perf_counter() - t0
             self.v = eig.v
             rows.append([j, rho, norm, eig.iters, res, dt])
-            sizes.append(float(np.sum(data["w"])))
+            sizes.append(self._global_weight(data["w"]))
         return self._rho_csv(rows, sizes)
 
     def _rho_csv(self, rows, sizes):
         arr = np.asarray(rows, dtype=float)
-        os.makedirs(self.log_dir, exist_ok=True)
-        np.savetxt(os.path.join(self.log_dir, self.header2 + "_rho_test.csv"),
-                   arr, delimiter=",")
+        if self._writer:
+            os.makedirs(self.log_dir, exist_ok=True)
+            np.savetxt(os.path.join(self.log_dir, self.header2 + "_rho_test.csv"),
+                       arr, delimiter=",")
         return np.average(arr, axis=0, weights=sizes)[1:]
 
+    @_on_mesh
     def rho_test_fused(self, x=None, y=None, loader=None, fname=None):
         """The JAX package's all-batch ``rho`` audit, batch by batch: every
         batch starts from the uniform vector (the reference's
@@ -878,9 +1177,10 @@ class SpectralTrainer:
             rho, norm, res = torch.stack(
                 [eig.rho, eig.norm, eig.res_change]).to(torch.float64).tolist()
             rows.append([j, rho, norm, eig.iters, res, time.perf_counter() - t0])
-            sizes.append(float(np.sum(data["w"])))
+            sizes.append(self._global_weight(data["w"]))
         return self._rho_csv(rows, sizes)
 
+    @_on_mesh
     def spectrum_test(self, x=None, y=None, loader=None, k: int = 4,
                       eps: float = 1e-4, max_iter: int = 200,
                       method: str = "subspace", lanczos_m: int = 0,
@@ -925,15 +1225,18 @@ class SpectralTrainer:
                                                max_iter=max_iter, start=start)
             rows.append(res.eigenvalues.tolist() + res.resid.tolist() + [res.iters])
         arr = np.asarray(rows, dtype=float)
-        os.makedirs(self.log_dir, exist_ok=True)
-        np.savetxt(os.path.join(self.log_dir, self.header2 + "_spectrum_test.csv"),
-                   arr, delimiter=",")
+        if self._writer:
+            os.makedirs(self.log_dir, exist_ok=True)
+            np.savetxt(os.path.join(self.log_dir, self.header2 + "_spectrum_test.csv"),
+                       arr, delimiter=",")
         return arr
 
     # ------------------------------------------------------------------
     # checkpoints (opt.py:765-769, 1041-1071)
     # ------------------------------------------------------------------
     def save(self, tail: str = CKPT):
+        if not self._writer:
+            return
         checkpoints.save_checkpoint(
             os.path.join(self.model_dir, self.header2 + tail),
             {"params": self.params, "model_state": self.model_state,
@@ -943,7 +1246,10 @@ class SpectralTrainer:
         """Everything an exact resume needs: ``save``'s payload plus the
         optimizer state, the best-model tracking, the CoV window, the
         LOBPCG preconditioner with its refit counter and the dropout keys
-        drawn (the JAX package's checkpoint leaves the first two out)."""
+        drawn (the JAX package's checkpoint leaves the first two out).
+        Under a mesh rank 0 writes it."""
+        if not self._writer:
+            return
         checkpoints.save_checkpoint(
             os.path.join(self.model_dir, self.header2 + tail),
             {"params": self.params, "model_state": self.model_state,
@@ -956,11 +1262,12 @@ class SpectralTrainer:
 
     def resume(self, fname: Optional[str] = None):
         """Restore a ``save_full`` checkpoint; the next ``train()``
-        continues from the epoch after it."""
+        continues from the epoch after it.  Under a mesh rank 0 reads it
+        and every rank takes its payload."""
         self.init_state()
         if fname is None:
             fname = os.path.join(self.model_dir, self.header2 + CKPT_FULL)
-        payload = checkpoints.load_checkpoint(fname)
+        payload = self._broadcast(checkpoints.load_checkpoint(fname) if self._writer else None)
         self._load_state(payload)
         self.opt_state = checkpoints.restore_like(self.opt_state, payload["opt_state"])
         self.i = int(payload["epoch"])
@@ -976,13 +1283,17 @@ class SpectralTrainer:
 
     def model_load(self, fname: Optional[str] = None):
         """Load a checkpoint's parameters, BN statistics and eigenvector;
-        by default the best model, else the last epoch's."""
+        by default the best model, else the last epoch's.  Under a mesh rank
+        0 reads it and every rank takes its payload."""
         self.init_state()
-        if fname is None:
-            fname = os.path.join(self.model_dir, self.header2 + CKPT_BEST)
-            if not os.path.exists(fname):
-                fname = os.path.join(self.model_dir, self.header2 + CKPT)
-        self._load_state(checkpoints.load_checkpoint(fname))
+        payload = None
+        if self._writer:
+            if fname is None:
+                fname = os.path.join(self.model_dir, self.header2 + CKPT_BEST)
+                if not os.path.exists(fname):
+                    fname = os.path.join(self.model_dir, self.header2 + CKPT)
+            payload = checkpoints.load_checkpoint(fname)
+        self._load_state(self._broadcast(payload))
 
     def _load_state(self, payload):
         self.params = checkpoints.restore_like(self.params, payload["params"])
@@ -994,15 +1305,15 @@ class SpectralTrainer:
     # log summary (reference parse(), opt.py:1244-1257)
     # ------------------------------------------------------------------
     def parse(self) -> Dict[str, str]:
-        with open(self.log_file) as fh:
-            lines = fh.readlines()[-10:]
+        """The log's last lines as a summary; under a mesh rank 0's."""
         out: Dict[str, str] = {}
-        for ln in lines:
-            if ":" in ln:
-                k, _, val = ln.partition(":")
-                out[k.strip().replace(" ", "_")] = val.strip()
-        os.makedirs(self.log_dir, exist_ok=True)
-        with open(os.path.join(self.log_dir, self.header2 + "_summary.tsv"), "w") as fh:
-            fh.write("\t".join(out.keys()) + "\n")
-            fh.write("\t".join(out.values()) + "\n")
-        return out
+        if self._writer:
+            with open(self.log_file) as fh:
+                lines = fh.readlines()[-10:]
+            for ln in lines:
+                if ":" in ln:
+                    k, _, val = ln.partition(":")
+                    out[k.strip().replace(" ", "_")] = val.strip()
+            self._write(os.path.join(self.log_dir, self.header2 + "_summary.tsv"),
+                        "\t".join(out.keys()) + "\n" + "\t".join(out.values()) + "\n", "w")
+        return self._broadcast(out)

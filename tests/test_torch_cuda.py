@@ -526,3 +526,58 @@ def test_reference_pt_round_trip_on_the_card(cuda, tmp_path, arch):
     dst.load_state_dict(load_torch_checkpoint(path, arch))
     x = torch.randn(shape, device=cuda)
     assert torch.equal(dst(x), src(x))
+
+
+def _forest_knob_run(device, tmp_path, header, **kw):
+    from optwboundeigenval_tpu_torch.data.device import DeviceArrayLoader
+    from optwboundeigenval_tpu_torch.data.loaders import ArrayLoader
+    from optwboundeigenval_tpu_torch.data.synthetic import make_classification
+    from optwboundeigenval_tpu_torch.models.mlp_forest import ForestNet
+
+    x, y = make_classification(160, 10, 4, seed=0)
+    device_data = kw.pop("device_data", False)
+    loader = (DeviceArrayLoader(x, y, 32, shuffle=True, seed=7, device=device) if device_data
+              else ArrayLoader(x, y, 32, shuffle=True, seed=7))
+    tr = SpectralTrainer(Task(model=ForestNet(in_features=10, hidden=12, num_classes=4).double()),
+                         sgd(0.1, momentum=0.9), device=device, mu=0.01, K=1.0, batch_size=32,
+                         max_iter=2, min_iter=1, max_pow_iter=30, pow_iter_eps=1e-2,
+                         defer_metrics=True, header=header, log_dir=str(tmp_path / "logs"),
+                         model_dir=str(tmp_path / "models"), **kw)
+    tr.train(train_loader=loader)
+    return tr
+
+
+def test_knobs_on_the_card_keep_the_trajectory(cuda, tmp_path):
+    """scan_steps, donate and device-resident data on the card against the
+    per-step run on the card: the same float64 trajectory."""
+    base = _forest_knob_run(cuda, tmp_path, "OFF")
+    knobs = _forest_knob_run(cuda, tmp_path, "ON", scan_steps=2, donate=True,
+                             device_data=True, mem_track=True)
+    assert knobs.mem_max > 0
+    for k, t in base.params.items():
+        assert knobs.params[k].device.type == "cuda"
+        torch.testing.assert_close(knobs.params[k], t, rtol=1e-12, atol=1e-14)
+    assert abs(knobs.f - base.f) <= 1e-12 * abs(base.f)
+
+
+def test_device_loader_on_the_card(cuda):
+    from optwboundeigenval_tpu_torch.data.device import DeviceArrayLoader, cifar_augment_device
+    from optwboundeigenval_tpu_torch.data.loaders import ArrayLoader
+
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(37, 8, 8, 3)).astype(np.float32)
+    y = rng.integers(0, 5, size=37).astype(np.int32)
+    dev = DeviceArrayLoader(x, y, batch_size=8, shuffle=True, seed=11)
+    assert dev.device.type == "cuda" and dev.x.device.type == "cuda"
+    for h, d in zip(ArrayLoader(x, y, batch_size=8, shuffle=True, seed=11), dev):
+        assert d["x"].device.type == "cuda"
+        np.testing.assert_array_equal(d["x"].cpu().numpy(), h["x"])
+    aug = DeviceArrayLoader(x, y, batch_size=8, seed=1, augment=cifar_augment_device)
+    batch = next(iter(aug))
+    assert batch["x"].device.type == "cuda" and batch["x"].shape == (8, 8, 8, 3)
+
+
+def test_mem_track_reads_the_card(cuda, tmp_path, capsys):
+    tr = _forest_knob_run(cuda, tmp_path, "MEM", mem_track=True)
+    assert tr.mem_max > 0
+    assert "Running Max device memory used (in bytes):" in capsys.readouterr().out

@@ -403,10 +403,19 @@ def test_trainer_takes_every_jax_keyword():
 @pytest.mark.parametrize("bad", [
     dict(scan_steps=4), dict(donate=True),
     dict(mem_track=True), dict(profile_epoch=1), dict(profile_dir="trace"),
-    dict(mesh=object())])
+    dict(mesh="data")])
 def test_unported_trainer_options_raise(bad):
-    with pytest.raises(NotImplementedError):
-        SpectralTrainer(Task(model=ForestNet()), sgd(0.1), device="cpu", **bad)
+    """The trainer's execution knobs and the ``data`` mesh are ported: each
+    builds; the ``model`` axis alone raises."""
+    from optwboundeigenval_tpu_torch.parallel import make_mesh
+
+    if "mesh" in bad:
+        with pytest.raises(NotImplementedError, match="item 12"):
+            make_mesh(model=2, device="cpu")
+        bad = {"mesh": make_mesh(device="cpu")}
+    tr = SpectralTrainer(Task(model=ForestNet()), sgd(0.1), device="cpu", **bad)
+    for k, v in bad.items():
+        assert getattr(tr, k) is v or getattr(tr, k) == v
 
 
 def test_config_options_reach_the_trainer():
@@ -425,11 +434,12 @@ def test_config_options_reach_the_trainer():
     ("device_data", True, "device_data"), ("saliency", True, "saliency"),
     ("jaccard_comp", True, "jaccard_comp")])
 def test_unknown_or_unported_config_keys_raise(key, value, match):
-    """An unknown or unported key raises ``NotImplementedError``.  The
-    analysis routes are ported: ``saliency`` builds, and an audit without
-    what it compares (a baseline, other trainers) raises ``ValueError``."""
+    """An unknown key raises ``NotImplementedError``.  The analysis routes
+    and ``device_data`` are ported: ``saliency`` and ``device_data`` build,
+    and an audit without what it compares (a baseline, other trainers)
+    raises ``ValueError``."""
     opts = forest_best.options(device="cpu", **{key: value})
-    if key == "saliency":
+    if key in ("saliency", "device_data"):
         assert driver.build_trainer(opts).header2 == "Forest_SGD_mu0.0028_K1.0"
     elif key in ("jaccard", "jaccard_comp"):
         with pytest.raises(ValueError, match=match):

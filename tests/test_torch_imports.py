@@ -118,3 +118,14 @@ def test_surface_modules_import_alone(name):
     import in a fresh interpreter without jax, flax, optax, sklearn,
     matplotlib, the JAX package or the repo's ``scripts``."""
     test_analysis_modules_import_alone(name)
+
+
+KNOBS = ["data.device", "data.loaders", "parallel", "parallel.mesh", "train.trainer"]
+
+
+@pytest.mark.parametrize("name", KNOBS)
+def test_knob_and_mesh_modules_import_alone(name):
+    """The device-resident loader, the prefetching loader and the
+    data-parallel mesh import in a fresh interpreter without jax, flax,
+    optax, sklearn, matplotlib, the JAX package or the repo's ``scripts``."""
+    test_analysis_modules_import_alone(name)

@@ -130,10 +130,15 @@ def test_entry_points_need_the_card_unless_told():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             SpectralTrainer(task, topt.sgd(0.1))
-    for bad in (dict(scan_steps=4), dict(donate=True),
-                dict(mem_track=True), dict(profile_dir="p"), dict(mesh=object())):
-        with pytest.raises(NotImplementedError):
-            SpectralTrainer(task, topt.sgd(0.1), device="cpu", **bad)
+    # the execution knobs and the data mesh build; the model axis raises
+    from optwboundeigenval_tpu_torch.parallel import make_mesh
+
+    for knob in (dict(scan_steps=4), dict(donate=True), dict(mem_track=True),
+                 dict(profile_dir="p"), dict(mesh=make_mesh(device="cpu"))):
+        tr = SpectralTrainer(task, topt.sgd(0.1), device="cpu", **knob)
+        assert all(getattr(tr, k) is v or getattr(tr, k) == v for k, v in knob.items())
+    with pytest.raises(NotImplementedError, match="item 12"):
+        make_mesh(model=2, device="cpu")
     # lobpcg is ported: it builds, and refuses what it does not compose with
     assert SpectralTrainer(task, topt.sgd(0.1), device="cpu", lobpcg=True).lobpcg
     for bad in (dict(eigensolver="arnoldi"),
