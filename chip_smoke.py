@@ -45,7 +45,7 @@ Phases (any failure exits non-zero and prints no result line):
 10. the published DenseNet-40 recipe: ``cifar10_densenet_mu0_01_K0`` with
     no override but ``max_iter=1`` (augmentation, ``remat``,
     ``defer_metrics``, power iteration at ``pow_iter_eps`` 0.05) through
-    ``driver.run`` on the first 256 rows of each split (8 steps; a cut for
+    ``driver.run`` on the first 128 rows of each split (4 steps; a cut for
     the time limit only, the train loader keeping its augmentation), then
     the same epoch with ``remat=False``: s/epoch, steps/s, mean
     ``pow_iters``, host ms of augmentation per batch and peak device
@@ -82,8 +82,8 @@ Phases (any failure exits non-zero and prints no result line):
     ``make_multilabel`` stand-ins (NIH 14 classes; CheXpert and MIMIC 13,
     10% NaN labels): ``chestxray_mu0_01_K0`` (``CXRModel(densenet121)``,
     batch 4) through ``driver.run`` with no other override but
-    ``max_iter=1`` and the loaders (16 train rows, 16 valid, 16 per test
-    set; 4 steps, a cut for the time limit only), ``comp_test`` over the
+    ``max_iter=1`` and the loaders (8 train rows, 8 valid, 8 per test
+    set; 2 steps, a cut for the time limit only), ``comp_test`` over the
     three test sets on their shared classes, then the same epoch with ``remat=False``: s/epoch, steps/s, mean
     ``pow_iters``, a profiled step, the peak device memory and the
     per-dataset AUC; the memory of one step's curvature passes with remat
@@ -160,10 +160,34 @@ Phases (any failure exits non-zero and prints no result line):
     batch 4, against one process, and a one-rank NCCL group on
     ``forest_best`` (float64) for one epoch through ``driver.run`` against
     ``mesh=None``, all within ``CARD_F64_RTOL``;
-17. a ``{"kernels": [...]}`` line (K1's launches summed over phases 4, 7,
-    8, 10, 11, 12, 13, 15 and 16, each counted from 0 just before its run),
-    the card's name and power limit, and last the ``{"ok": true, "device":
-    ...}`` line.
+17. the ``model`` mesh axis (``parallel/sharding.py``), gloo ranks sharing
+    the card (this script started with ``--rank ... --phase``): (a) two
+    ranks as ``data=1 x model=2``, ``chestxray_mu0_01_K0``'s
+    ``CXRModel(densenet121)`` sharded at the default ``min_elems`` (the
+    leaves and values sharded, the bytes of params, ``v`` and Adam state a
+    rank holds against one process), one ``train_step`` with
+    ``hvp_micro=2`` at 224 px, batch 4, float32, K1 launching ``2 *
+    (pow_iters + 2)`` times on the local slices (their 16-byte alignment,
+    and every call bit-equal to its plain version on the same leaves),
+    ``rho``, ``g``, ``f`` before the step, the Adam moments, the
+    BatchNorm statistics and the updated params against one process from
+    the same seed, and the update each rank applied against Adam's step
+    from the moments it holds, within ``CARD_F32_RTOL``, then the same
+    but the params at float64, 64 px, batch 2 within ``CARD_F64_RTOL``,
+    the step's seconds and each process's peak device memory, sharded and
+    not; (b) four ranks as ``data=2 x model=2``, the JAX package's multi-chip dryrun (``__graft_entry__.py``)
+    on CNNUSPS at float64 with ``min_elems=1024``: a step, a
+    ``scan_steps=2`` epoch, a LOBPCG step, a Lanczos step, the control,
+    flagship-knob and ``auto`` epochs, each against one process; (c) the
+    same four ranks on ``forest_best``'s ForestNet at float64, replicated
+    params, 2 epochs of ``train()`` on the first 512 train rows through
+    ``host_shard`` loaders fed by the data coordinate and ``test_model``
+    through them: rank 0's TSV rows, every rank's state and evaluation
+    against one process, each row counted once;
+18. a ``{"kernels": [...]}`` line (K1's launches summed over phases 4, 7,
+    8, 10, 11, 12, 13, 15, 16 and 17, each counted from 0 just before its
+    run), the card's name and power limit, and last the ``{"ok": true,
+    "device": ...}`` line.
 
 Weights are random (seed 1226); the data are the real sets when they are
 under ``./data``, else their synthetic stand-ins.
@@ -172,6 +196,7 @@ under ``./data``, else their synthetic stand-ins.
 from __future__ import annotations
 
 import contextlib
+import gc
 import io
 import json
 import math
@@ -935,7 +960,7 @@ def remat_memory(label, build, batch, device="cuda"):
     return out
 
 
-def phase_recipe(device="cuda", rows=256):
+def phase_recipe(device="cuda", rows=128):
     """Phase 10: the published DenseNet-40 recipe through ``driver.run``,
     with remat and without; a float64 step with remat on and off; and 2
     remat steps with ``hvp_micro=2`` through K1.  Returns K1's launches
@@ -1448,7 +1473,7 @@ def phase_comparators(device="cuda"):
 
 
 CXR_PX = 224  # the published input width of the chest x-ray recipes
-CXR_ROWS = (16, 16, 16)  # train, valid and each test set: 4 steps at batch 4
+CXR_ROWS = (8, 8, 8)  # train, valid and each test set: 2 steps at batch 4
 
 
 def cxr_loaders(rows=CXR_ROWS, px=CXR_PX, batch=4):
@@ -2498,7 +2523,7 @@ def knobs_flagship(tmp, device="cuda", rows=128, epochs=2, off=None):
         f"epoch 1 {rate(per_epoch):.3f} steps/s against {rate(base):.3f} with scan_steps=1 "
         f"and no donate ({rate(per_epoch) / rate(base):.3f}x)")
     if off:
-        log(f"knobs off (phase 10, the same recipe on 256 rows, one epoch): {off['s_epoch']:.2f} "
+        log(f"knobs off (phase 10, the same recipe on 128 rows, one epoch): {off['s_epoch']:.2f} "
             f"s/epoch, {off['steps_s']:.3f} steps/s, mean pow_iters {off['pow']:.2f}, "
             f"max_memory_allocated {off['peak']} B; steps/s of epoch 1 on/off "
             f"{rate(per_epoch) / off['steps_s']:.3f}x")
@@ -2633,22 +2658,32 @@ def _mesh_runs(device, mesh=None):
     return out
 
 
-def mesh_rank(argv):
-    """One rank of phase 16 (e), started by :func:`knobs_mesh`:
-    ``chip_smoke.py --rank R --world N --port P --out DIR --device D``."""
-    from optwboundeigenval_tpu_torch.parallel import init_distributed, make_mesh
+def _rank_main(run):
+    """One gloo rank of this script, ``chip_smoke.py --rank R --world N
+    --port P --out DIR --device D [--phase tp2|tp4]``: joins the group,
+    runs ``run(args)`` and leaves it."""
+    from optwboundeigenval_tpu_torch.parallel import init_distributed
 
-    args = dict(zip(argv[1::2], argv[2::2]))
-    rank, world, device = int(args["--rank"]), int(args["--world"]), args["--device"]
+    args = dict(zip(sys.argv[1::2], sys.argv[2::2]))
     torch.set_num_threads(2)  # the ranks share the host's cores with the parent
-    init_distributed(f"127.0.0.1:{args['--port']}", num_processes=world, process_id=rank,
-                     backend="gloo")
-    mesh = make_mesh(device=None if device == "cuda" else device)
+    init_distributed(f"127.0.0.1:{args['--port']}", num_processes=int(args["--world"]),
+                     process_id=int(args["--rank"]), backend="gloo")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        run(args)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def mesh_rank(args):
+    """One rank of phase 16 (e), started by :func:`knobs_mesh`."""
+    from optwboundeigenval_tpu_torch.parallel import make_mesh
+
+    device = args["--device"]
+    mesh = make_mesh(device=None if device == "cuda" else device)
     out = _mesh_runs(device, mesh)
-    torch.save(out, os.path.join(args["--out"], f"rank{rank}.pt"))
-    torch.distributed.destroy_process_group()
+    torch.save(out, os.path.join(args["--out"], f"rank{args['--rank']}.pt"))
 
 
 def _free_port():
@@ -2750,9 +2785,384 @@ def phase_knobs(device="cuda", published=None):
     return launches
 
 
+def _spawn_ranks(tmp, device, world, phase, px=CXR_PX):
+    """Start ``world`` gloo ranks of this script (``--rank``) for ``phase``;
+    returns the processes."""
+    port = _free_port()
+    return [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--rank", str(r),
+                              "--world", str(world), "--port", str(port), "--out", tmp,
+                              "--device", device, "--phase", phase, "--px", str(px)],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+            for r in range(world)]
+
+
+def _join_ranks(procs, tmp, label, timeout=600):
+    """Wait for the ranks; fail on any exit but 0; their saved results."""
+    try:
+        outs = [p.communicate(timeout=timeout)[0].decode(errors="replace") for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for r, (p, text) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            log(text[-4000:])
+            fail(f"{label}: rank {r} exited {p.returncode}")
+    return [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+            for r in range(len(procs))]
+
+
+def _bytes(tree):
+    return sum(t.numel() * t.element_size() for t in tree.values())
+
+
+def _tp_cxr_step(device, f64, mesh=None, px=CXR_PX):
+    """Phase 17 (a) on this rank (``mesh``, its large leaves sharded at the
+    default ``min_elems``) or one process: one ``chestxray_mu0_01_K0``
+    ``train_step`` with ``hvp_micro=2`` from the config's seed, float32 at
+    ``px`` (224) and batch 4, or float64 at 64 px and batch 2.  Every K1
+    call of the step is held bit for bit against its plain version on
+    the same leaves.  Returns the metrics, the eval-mode ``f`` of the
+    batch before the step, the gathered params, their update, the Adam
+    moments and Adam's step from them after it, the BatchNorm statistics, K1's launches,
+    the alignment of its deltas and the plain comparison, the bytes
+    held, the device memory allocated at the step's start and at its
+    peak (above what the process held before the trainer), the step's
+    seconds."""
+    from optwboundeigenval_tpu_torch.configs import chestxray_mu0_01_K0 as cfg
+    from optwboundeigenval_tpu_torch.ops import curvature
+    from optwboundeigenval_tpu_torch.ops import pallas_kernels as pk
+    from optwboundeigenval_tpu_torch.parallel import mesh as meshlib, shard_params
+    from optwboundeigenval_tpu_torch.train.driver import build_trainer
+
+    px, rows = (64, 2) if f64 else (px, 4)
+    cuda = device == "cuda"
+    if cuda:  # what this process held before the trainer
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+    opts = cfg.options(device=device, hvp_micro=2, batch_size=rows, mesh=mesh,
+                       **cxr_loaders((rows, rows, rows), px, rows))
+    tr = build_trainer(opts)
+    if f64:
+        _as_f64(tr)
+    tr.init_state()
+    full = {"params": _bytes(tr.params), "v": _bytes(tr.v),
+            "adam": _bytes(tr.opt_state["mu"]) + _bytes(tr.opt_state["nu"])}
+    if mesh is not None:
+        tr.params = shard_params(tr.params, mesh)
+        tr.v = shard_params(tr.v, mesh)
+    dims = tr._sharding.dims if tr._sharding is not None else {}
+    held = {"params": _bytes(tr.params), "v": _bytes(tr.v),
+            "adam": _bytes(tr.opt_state["mu"]) + _bytes(tr.opt_state["nu"])}
+    order = list(tr.params)
+    aligned, mismatch = [], []
+    check = {"calls": 0, "values": 0, "sliced": 0, "seconds": 0.0, "allocated": 0}
+
+    def recording(acc, delta, alpha, init=False):
+        """K1 on this rank's leaves, held bit for bit against its plain
+        version on clones of the same ``acc``; the count of leaves that
+        differ stays on the card until the step has ended."""
+        t = time.perf_counter()
+        aligned.append([(d.data_ptr() & 15) == 0 for k, d in zip(order, delta) if k in dims])
+        want = pk.axpy_accumulate_plain([a.clone() for a in acc], delta, alpha, init=init)
+        check["seconds"] += time.perf_counter() - t
+        out = pk.axpy_accumulate(acc, delta, alpha, init=init)
+        t = time.perf_counter()
+        if cuda:
+            check["allocated"] = max(check["allocated"], torch.cuda.memory_allocated() - base)
+        norms = torch._foreach_norm(torch._foreach_sub(out, want))
+        mismatch.append(torch.stack(norms).ne(0).sum())
+        check["calls"] += 1
+        check["values"] += sum(a.numel() for a in acc)
+        check["sliced"] += sum(a.numel() for k, a in zip(order, acc) if k in dims)
+        check["seconds"] += time.perf_counter() - t
+        return out
+
+    batch = next(iter(opts["train_loader"]))
+    with meshlib.active(tr.mesh, tr._sharding):  # the batch's loss through the gathered model
+        loss, _ = tr.task.eval_loss(tr.params, tr.model_state, tr.put_batch(batch))
+        f = float(meshlib.all_sum(loss))
+    before = {k: t.to("cpu", copy=True) for k, t in tr._full(tr.params).items()}
+    curvature.axpy_accumulate, plain = recording, curvature.axpy_accumulate
+    try:
+        pk.axpy_accumulate.launches = 0
+        _sync(device)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated() - base if cuda else 0
+        t0 = time.perf_counter()
+        m = tr.train_step(batch)
+        _sync(device)
+        seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base if cuda else 0
+        launches = pk.axpy_accumulate.launches
+    finally:
+        curvature.axpy_accumulate = plain
+    check["mismatched"] = int(sum(int(n) for n in mismatch))
+    after = {k: t.to("cpu", copy=True) for k, t in tr._full(tr.params).items()}
+    st = tr.opt_state
+    mu, nu = ({k: t.cpu() for k, t in tr._full(st[n]).items()} for n in ("mu", "nu"))
+    # the config's Adam (b1 0.9, b2 0.999, eps 1e-8) from the moments held
+    c1, c2 = 1 - 0.9 ** st["count"], 1 - 0.999 ** st["count"]
+    adam = {k: -st["lr"] * ((mu[k].double() / c1) / ((nu[k].double() / c2).sqrt() + 1e-8))
+            for k in mu}
+    return {"m": {k: m[k] for k in ("rho", "g", "gradf_norm", "gradg_norm", "pow_iters",
+                                    "step_ok")},
+            "f": f, "params": after, "direction": mu, "nu": nu, "adam": adam,
+            "update": {k: after[k].double() - before[k].double() for k in after},
+            "bn_stats": {k: t.cpu() for k, t in tr.model_state.items()},
+            "launches": launches, "aligned": aligned, "check": check, "seconds": seconds,
+            "memory": (start, peak),
+            "sharded": (len(dims), sum(tr._sharding.shapes[k].numel() for k in dims)
+                        if dims else 0),
+            "leaves": len(tr.params), "values": tr.ndim, "bytes": (held, full)}
+
+
+def _tp_dryrun(device, mesh=None):
+    """Phase 17 (b): ``__graft_entry__.py:121-230`` step for step on CNNUSPS
+    at its published widths, float64, 16 rows a batch (4 a device of the
+    JAX package's 4-device mesh), ``min_elems=1024``: a ``train_step``, a
+    ``scan_steps=2`` epoch, a LOBPCG step (``kfac_batch=1``), a Lanczos
+    step (``lanczos_m=4``), and one epoch each of the plain control, the
+    flagship knobs and ``eigensolver='auto'``.  ``f``, ``rho``, ``g`` and
+    the gathered params of each leg."""
+    from optwboundeigenval_tpu_torch.data.loaders import ArrayLoader
+    from optwboundeigenval_tpu_torch.data.synthetic import make_images
+    from optwboundeigenval_tpu_torch.models.cnn_usps import CNNUSPS
+    from optwboundeigenval_tpu_torch.optim.api import sgd
+    from optwboundeigenval_tpu_torch.parallel import shard_batch, shard_params
+    from optwboundeigenval_tpu_torch.train.task import Task
+    from optwboundeigenval_tpu_torch.train.trainer import SpectralTrainer
+
+    x, y = make_images(32, shape=(16, 16, 1), n_classes=10, seed=0)
+    batches = list(ArrayLoader(x, y, batch_size=16))
+    if mesh is not None:
+        batches = [shard_batch(b, mesh) for b in batches]
+    tmp = tempfile.mkdtemp()
+
+    def trainer(header, **kw):
+        tr = SpectralTrainer(Task(model=CNNUSPS().double()), sgd(0.05), mu=0.01, K=1.0,
+                             batch_size=16, pow_iter_eps=1e-2, header=header, mesh=mesh,
+                             device=device, log_dir=tmp, model_dir=tmp, **kw)
+        tr.init_state()
+        if mesh is not None:
+            tr.params = shard_params(tr.params, mesh, min_elems=1024)
+            tr.v = shard_params(tr.v, mesh, min_elems=1024)
+        return tr
+
+    def state(tr, rho=None):
+        return {"f": tr.f, "rho": tr.rho if rho is None else rho, "g": tr.g,
+                "params": {k: t.cpu() for k, t in tr._full(tr.params).items()}}
+
+    out, t0 = {}, time.perf_counter()
+    tr = trainer("DRYRUN", max_pow_iter=5)
+    out["step"] = state(tr, tr.train_step(batches[0])["rho"])
+    tr.defer_metrics, tr.scan_steps = True, 2
+    tr.iter_epoch(batches)
+    out["scan_steps=2 epoch"] = state(tr)
+    for leg, kw in (("lobpcg step", dict(max_pow_iter=30, ignore_bad_vals=False, lobpcg=True,
+                                         kfac_batch=1)),
+                    ("lanczos step", dict(max_pow_iter=5, ignore_bad_vals=False,
+                                          eigensolver="lanczos", lanczos_m=4))):
+        t = trainer(f"DRYRUN_{leg}", **kw)
+        out[leg] = state(t, t.train_step(batches[0])["rho"])
+    for leg, kw in (("control epoch", {}),
+                    ("flagship epoch", dict(remat=True, defer_metrics=True, donate=True,
+                                            scan_steps=2)),
+                    ("auto epoch", dict(eigensolver="auto"))):
+        t = trainer(f"DRYRUN_{leg}", max_pow_iter=5, seed=3, **kw)
+        t.iter_epoch(batches)
+        out[leg] = state(t)
+    out["sharded"] = sorted(tr._sharding.dims) if tr._sharding is not None else []
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _tp_loop(device, tmp, mesh=None, rows=512):
+    """Phase 17 (c): ``tests/test_multihost.py:248`` on ``forest_best``'s
+    ForestNet at float64 with replicated params: 2 epochs of ``train()``
+    on the first ``rows`` train rows (a cut for time only) through
+    ``host_shard`` loaders fed by the data coordinate, the first 256
+    validation rows, then ``test_model`` through the ``host_shard`` loader.
+    The TSV rows (rank 0 writes them), the final state, the evaluation and
+    the rows the gathered evaluation counts."""
+    from optwboundeigenval_tpu_torch.configs import forest_best
+    from optwboundeigenval_tpu_torch.data.loaders import ArrayLoader
+    from optwboundeigenval_tpu_torch.models.mlp_forest import ForestNet
+    from optwboundeigenval_tpu_torch.train.driver import build_trainer
+
+    label = "one" if mesh is None else f"rank{mesh.rank}"
+    opts = forest_best.options(device=device, mesh=mesh, model=ForestNet().double(),
+                               max_iter=2, min_iter=2, log_dir=f"{tmp}/{label}/logs",
+                               model_dir=f"{tmp}/{label}/models")
+    bs = opts["batch_size"]
+    x, y = opts["inputs"][:rows], opts["target"][:rows]
+    loader = (ArrayLoader(x, y, bs) if mesh is None else
+              ArrayLoader(x, y, bs // mesh.data, host_shard=(mesh.data_coord, mesh.data)))
+    tr = build_trainer(opts)
+    t0 = time.perf_counter()
+    tr.train(train_loader=loader, valid_loader=ArrayLoader(opts["inputs_valid"][:256],
+                                                           opts["target_valid"][:256], bs))
+    seconds = time.perf_counter() - t0
+    rows_seen = (sum(len(b["y"]) for b in tr._eval_outputs_sharded(loader))
+                 if mesh is not None else rows)
+    tsv = ([[float(c) for c in ln.split()] for ln in open(tr.log_file) if ln[:1].isdigit()]
+           if tr._writer else [])
+    return {"f": tr.f, "rho": tr.rho, "g": tr.g, "h": tr.h,
+            "params": {k: t.cpu() for k, t in tr.params.items()}, "rows": tsv,
+            "eval": list(tr.test_model(loader=loader)), "rows_seen": rows_seen,
+            "seconds": seconds}
+
+
+def tp_rank(args):
+    """One rank of phase 17, started by :func:`phase_model_axis`."""
+    from optwboundeigenval_tpu_torch.parallel import make_mesh
+
+    device, rank = args["--device"], int(args["--rank"])
+    if args["--phase"] == "tp2":
+        mesh = make_mesh(data=1, model=2, device=None if device == "cuda" else device)
+        out = {"f32": _tp_cxr_step(device, False, mesh, int(args["--px"])),
+               "f64": _tp_cxr_step(device, True, mesh)}
+    else:
+        mesh = make_mesh(data=2, model=2, device=None if device == "cuda" else device)
+        out = {"dryrun": _tp_dryrun(device, mesh), "loop": _tp_loop(device, args["--out"], mesh),
+               "coords": (mesh.data_coord, mesh.model_coord)}
+    torch.save(out, os.path.join(args["--out"], f"rank{rank}.pt"))
+
+
+def _tp_check(label, errs, bound):
+    log(f"{label}: relative errors " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f" (bound {bound:g})")
+    if not max(errs.values()) < bound:
+        fail(f"{label}: the ranks and one process disagree")
+
+
+def tp_model_axis_cxr(device="cuda", px=CXR_PX):
+    """Phase 17 (a): two gloo ranks sharing the card as ``data=1 x
+    model=2``, one ``chestxray_mu0_01_K0`` step with ``hvp_micro=2`` against
+    one process from the same seed: float32 at 224 px (``CARD_F32_RTOL``)
+    and float64 at 64 px (``CARD_F64_RTOL``), the Adam moments and the
+    update each rank applied (against Adam's step from its own moments)
+    included; K1's launches on the local slices, each call bit-equal to
+    its plain version; each process's device memory at the step's peak.
+    Returns K1's launches on rank 0."""
+    from optwboundeigenval_tpu_torch.ops import pallas_kernels as pk
+
+    one = {"f32": _tp_cxr_step(device, False, px=px), "f64": _tp_cxr_step(device, True)}
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = _join_ranks(_spawn_ranks(tmp, device, 2, "tp2", px), tmp, "phase 17 (a)")
+    for prec, bound in (("f32", CARD_F32_RTOL), ("f64", CARD_F64_RTOL)):
+        want = one[prec]
+        held, full = ranks[0][prec]["bytes"]
+        n, values = ranks[0][prec]["sharded"]
+        log(f"model axis, chestxray {prec}: {n} of {want['leaves']} leaves sharded, "
+            f"{values} of {want['values']} values; bytes a rank holds against one process: "
+            + ", ".join(f"{k} {held[k]} / {full[k]} ({held[k] / full[k]:.4f}x)" for k in held))
+        for r, res in enumerate(ranks):
+            m = res[prec]["m"]
+            want_k1 = 2 * (m["pow_iters"] + 2)
+            aligned = [a for call in res[prec]["aligned"] for a in call]
+            log(f"model axis, chestxray {prec}, rank {r}: rho {m['rho']:.10g} pow_iters "
+                f"{m['pow_iters']} g {m['g']:.10g} f {res[prec]['f']:.10g}, step "
+                f"{res[prec]['seconds']:.2f} s against {want['seconds']:.2f} s in one "
+                f"process; K1 launches {res[prec]['launches']} (expected {want_k1}), "
+                f"{sum(aligned)} of {len(aligned)} local-slice deltas 16-byte aligned")
+            if device == "cuda" and res[prec]["launches"] != want_k1:
+                fail(f"model axis {prec}: {res[prec]['launches']} K1 launches, expected {want_k1}")
+            if m["pow_iters"] != want["m"]["pow_iters"] or not m["step_ok"]:
+                fail(f"model axis {prec}: rank {r} {m} against one process {want['m']}")
+            errs = {k: abs(m[k] - want["m"][k]) / max(abs(want["m"][k]), 1e-30)
+                    for k in ("rho", "g", "gradf_norm", "gradg_norm")}
+            errs["f"] = abs(res[prec]["f"] - want["f"]) / max(abs(want["f"]), 1e-30)
+            errs["direction"] = _rel(res[prec]["direction"], want["direction"])
+            errs["second moment"] = _rel(res[prec]["nu"], want["nu"])
+            errs["bn_stats"] = _rel(res[prec]["bn_stats"], want["bn_stats"])
+            if prec == "f32":
+                errs["params"] = _rel(res[prec]["params"], want["params"])
+            # the update the rank applied to its slices and replicated
+            # leaves, against Adam's step from the moments it holds
+            errs["update vs its Adam step"] = _rel(res[prec]["update"], res[prec]["adam"])
+            _tp_check(f"model axis, chestxray {prec}, rank {r} vs one process", errs, bound)
+            log(f"model axis, chestxray {prec}, rank {r}: update against one process's "
+                f"{_rel(res[prec]['update'], want['update']):.3e}, held to no bound: Adam's "
+                "first step maps a gradient of rounding noise (a conv bias before BatchNorm "
+                "has an exact gradient of 0) to as much as +-lr, so rounding moves it")
+            check = res[prec]["check"]
+            log(f"model axis, chestxray {prec}, rank {r}: K1 against its plain version on "
+                f"{check['calls']} calls, {check['values']} values ({check['sliced']} of them "
+                f"in local slices), {check['mismatched']} leaves differing; the check's host "
+                f"time {check['seconds']:.3f} s of the step, its most allocated "
+                f"{check['allocated']} B")
+            unchecked = device == "cuda" and check["calls"] != res[prec]["launches"]
+            if check["mismatched"] or unchecked:
+                fail(f"model axis {prec}: rank {r}'s K1 and its plain version differ ({check})")
+            (start, peak), (one_start, one_peak) = res[prec]["memory"], want["memory"]
+            log(f"model axis, chestxray {prec}, rank {r}: device memory allocated at the "
+                f"step's start {start} B, peak {peak} B; one process {one_start} B, peak "
+                f"{one_peak} B ({peak / max(one_peak, 1):.4f}x)")
+    return ranks[0]["f32"]["launches"] + ranks[0]["f64"]["launches"]
+
+
+def tp_dp_tp(device="cuda"):
+    """Phase 17 (b) and (c): four gloo ranks sharing the card as ``data=2 x
+    model=2``, the dryrun sequence and the multi-host loop against one
+    process (``CARD_F64_RTOL``)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = _spawn_ranks(tmp, device, 4, "tp4")
+        try:
+            one = {"dryrun": _tp_dryrun(device), "loop": _tp_loop(device, tmp)}
+        finally:
+            ranks = _join_ranks(procs, tmp, "phase 17 (b, c)")
+    if [r["coords"] for r in ranks] != [(0, 0), (0, 1), (1, 0), (1, 1)]:
+        fail(f"mesh coordinates {[r['coords'] for r in ranks]}")
+    for r, res in enumerate(ranks):
+        if res["dryrun"]["sharded"] != ["conv2.weight", "conv3.weight", "fc1.weight"]:
+            fail(f"dryrun: rank {r} sharded {res['dryrun']['sharded']}")
+        for leg, want in one["dryrun"].items():
+            if leg in ("sharded", "seconds"):
+                continue
+            got = res["dryrun"][leg]
+            errs = {k: abs(got[k] - want[k]) / max(abs(want[k]), 1e-30) for k in ("f", "rho", "g")}
+            errs["params"] = _rel(got["params"], want["params"])
+            _tp_check(f"dp x tp dryrun {leg}, rank {r} vs one process", errs, CARD_F64_RTOL)
+    log(f"dp x tp dryrun: {ranks[0]['dryrun']['seconds']:.2f} s on 4 ranks, "
+        f"{one['dryrun']['seconds']:.2f} s in one process")
+    want = one["loop"]
+    if len(want["rows"]) != 2 or len(ranks[0]["loop"]["rows"]) != 2:
+        fail(f"dp x tp loop: TSV rows {ranks[0]['loop']['rows']} against {want['rows']}")
+    errs = {"TSV rows": _rel(torch.tensor(ranks[0]["loop"]["rows"]), torch.tensor(want["rows"]))}
+    for r, res in enumerate(ranks):
+        got = res["loop"]
+        errs.update({f"rank {r} {k}": abs(got[k] - want[k]) / max(abs(want[k]), 1e-30)
+                     for k in ("f", "rho", "h")})
+        errs[f"rank {r} params"] = _rel(got["params"], want["params"])
+        errs[f"rank {r} eval"] = _rel(torch.tensor(got["eval"]), torch.tensor(want["eval"]))
+        if got["rows_seen"] != want["rows_seen"]:
+            fail(f"dp x tp loop: rank {r}'s evaluation counted {got['rows_seen']} rows of "
+                 f"{want['rows_seen']}")
+    log("dp x tp loop (forest_best, 2 epochs, replicated params): TSV "
+        f"{ranks[0]['loop']['rows']}; "
+        f"every rank's gathered evaluation counted {want['rows_seen']} rows once; "
+        f"{ranks[0]['loop']['seconds']:.2f} s on 4 ranks, {want['seconds']:.2f} s in one process")
+    _tp_check("dp x tp loop vs one process", errs, CARD_F64_RTOL)
+
+
+def phase_model_axis(device="cuda", px=CXR_PX):
+    """Phase 17: the ``model`` mesh axis.  Returns K1's launches."""
+    t0 = time.perf_counter()
+    launches = tp_model_axis_cxr(device, px)
+    log(f"phase 17: (a) data=1 x model=2 done, {time.perf_counter() - t0:.1f} s in")
+    tp_dp_tp(device)
+    log(f"phase 17: (b, c) data=2 x model=2 done, {time.perf_counter() - t0:.1f} s in")
+    return launches
+
+
 def main():
     if "--rank" in sys.argv:
-        return mesh_rank(sys.argv)
+        return _rank_main(tp_rank if "--phase" in sys.argv else mesh_rank)
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs an NVIDIA GPU")
     t0 = time.perf_counter()
@@ -2796,6 +3206,8 @@ def main():
     done("phase 15")
     launches += phase_knobs(published=published)
     done("phase 16")
+    launches += phase_model_axis()
+    done("phase 17")
     kernels = [{**entry, "launches": launches}]
     log(json.dumps({"kernels": kernels}))
     log(smi)

@@ -24,9 +24,9 @@ shape) -> keep mask``: the tests inject the masks flax drew, and the card
 is held to the CPU with the same masks.
 
 Under a data-parallel mesh (``parallel/mesh.py``) a site's mask is drawn
-for the global batch's shape and each rank takes its own rows, as flax's
-mask over a sharded batch is one global draw, so a run on several ranks
-sees the masks of a run on one.
+for the global batch's shape and each rank takes the rows of its data
+coordinate, as flax's mask over a sharded batch is one global draw, so a
+run on several ranks sees the masks of a run on one.
 """
 
 from __future__ import annotations

@@ -27,7 +27,8 @@ torch's convention is flax's 0.9.
 Under a data-parallel mesh (``parallel/mesh.py``, ``active``) the
 statistics are the global batch's, as the JAX package's mean over a
 sharded batch axis is: the per-channel sums and the count go through an
-all-reduce that autograd differentiates to every order, the mean first
+all-reduce over the ``data`` group (each row once) that autograd
+differentiates to every order, the mean first
 and then the squared deviations from it (two passes still).
 """
 

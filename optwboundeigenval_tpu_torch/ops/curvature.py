@@ -40,6 +40,11 @@ gradient and its loss, each HVP (``hvp``, ``linearize_hvp``'s and
 its slices on the rank first (the accumulate kernel runs on local sums)
 and reduces once; slice ``i`` is then every rank's slice ``i``, whose
 BatchNorm statistics and weight are taken over the ranks together.
+Under a sharding (``parallel/sharding.py``) the products of a sharded
+leaf are this rank's slice, summed over its ``data`` group, and those of
+a replicated leaf are summed over the world (``mesh.all_sum_tree``, the
+convention of ``parallel/mesh.py``); the accumulate kernel runs on the
+local slices.
 """
 
 from __future__ import annotations

@@ -34,7 +34,10 @@ stop test, as the power iteration reads its test once per HVP.
 Under a data-parallel mesh (``parallel/mesh.py``) the operator returns
 all-reduced products, and every stop, breakdown and convergence decision
 goes through ``mesh.agree``: one collective decides for all ranks, so no
-rank leaves a loop that another continues.
+rank leaves a loop that another continues.  Under a sharding the tree
+helpers reduce over the ``model`` group (``utils/tree.py``): the power
+iteration keeps this rank's slices, and the flat solvers work on the
+gathered vector, as one process does, and hand the operator the slices.
 """
 
 from __future__ import annotations

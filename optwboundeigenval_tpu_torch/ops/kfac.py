@@ -30,10 +30,14 @@ explicit generator, so a caller can also hand ``capture`` targets drawn
 elsewhere.
 
 Under a data-parallel mesh (``parallel/mesh.py``) the covariances are
-the global batch's: each rank's contraction over its rows, all-reduced,
-with the global example count and weight; sampled targets are drawn for
-the gathered global outputs, the same draw on every rank, and each rank
-keeps its rows.
+the global batch's: each rank's contraction over its rows, all-reduced
+over the ``data`` group, with the global example count and weight;
+sampled targets are drawn for the global outputs gathered over the
+``data`` group, the same draw on every rank, and each rank keeps its
+rows.  Under a sharding (``parallel/sharding.py``) the factors are whole
+layers' as in one process: :func:`fit_factors` captures on the gathered
+weights, and :func:`precond_apply` gathers the residual, applies the
+inverse and returns this rank's slices.
 """
 
 from __future__ import annotations
@@ -77,7 +81,7 @@ def sample_fisher_targets(task, params: Tree, model_state: Tree, batch,
     first, _ = meshlib.global_rows(len(out))
     rows = slice(first, first + len(out))
     if mesh is not None:
-        out = meshlib.all_gather_rows(out, mesh)
+        out = meshlib.all_gather_rows(out, mesh, "data")
     if out.dim() > 1 and task.loss.__name__ in BCE_LOSSES:
         y = torch.bernoulli(torch.sigmoid(out).cpu(), generator=generator)
         return y[rows].to(out.device, torch.float32)
@@ -274,6 +278,9 @@ def fit_factors(task, params: Tree, model_state: Tree, batch,
     targets sampled from ``generator`` under ``sample_targets`` (or
     ``targets`` as given), EMA-update ``prev`` (or identity) and
     recompute the inverses."""
+    sharding = meshlib.current_sharding()
+    if sharding is not None:
+        params = sharding.gather(params)
     if targets is None and sample_targets:
         targets = sample_fisher_targets(task, params, model_state, batch, generator)
     _, caps = capture(task, params, model_state, batch, targets, key)
@@ -283,5 +290,10 @@ def fit_factors(task, params: Tree, model_state: Tree, batch,
 
 def precond_apply(factors: Factors, residual: Tree, damping: float = 0.0) -> Tree:
     """The ``precond`` the eigensolver gets: ``r -> F^{-1} r`` per
-    factored layer (kfac.py:482-485)."""
-    return apply_to_tree(factors, residual, damping)
+    factored layer (kfac.py:482-485); under a sharding on the gathered
+    residual, returning this rank's slices."""
+    sharding = meshlib.current_sharding()
+    if sharding is None:
+        return apply_to_tree(factors, residual, damping)
+    full = sharding.gather(residual)
+    return sharding.local(apply_to_tree(factors, full, damping))

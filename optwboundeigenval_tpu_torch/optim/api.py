@@ -41,7 +41,11 @@ class Optimizer:
     closure's ``mf``/``merr``; ``needs_stats``: ``step`` takes
     ``stats_fn``, with sampled targets when ``kfac_rand``;
     ``build_extra_state(state, task, params, model_state)`` fills the
-    model-shaped state once at ``init_state`` (the K-FAC factors)."""
+    model-shaped state once at ``init_state`` (the K-FAC factors);
+    ``slices``: ``step`` may run on a rank's slices of sharded leaves
+    (``parallel/sharding.py``), else the trainer hands it the gathered
+    tree and keeps the slices of its result (K-FAC's per-layer inverse,
+    Entropy-SGD's noise drawn in the full shapes)."""
 
     name: str
     init: Callable[[Tree], dict]
@@ -51,6 +55,7 @@ class Optimizer:
     needs_stats: bool = False
     kfac_rand: bool = True
     build_extra_state: Optional[Callable] = None
+    slices: bool = True
 
     def set_learning_rate(self, state: dict, lr: float) -> dict:
         return {**state, "lr": float(np.float32(lr) if self.lr_float32 else lr)}

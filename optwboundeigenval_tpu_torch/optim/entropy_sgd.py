@@ -101,4 +101,4 @@ def EntropySGD(lr: float = 0.1, momentum: float = 0.9, damp: float = 0.0,
                             "mf": mf, "merr": merr}
 
     return Optimizer(name="EntropySGD", init=init, step=step, lr_float32=True,
-                     wants_err=True)
+                     wants_err=True, slices=False)

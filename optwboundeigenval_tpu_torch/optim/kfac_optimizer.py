@@ -70,4 +70,4 @@ def KFAC(lr: float = 0.001, momentum: float = 0.9, stat_decay: float = 0.95,
 
     return Optimizer(name="KFAC", init=init, step=step, lr_float32=True,
                      needs_stats=True, kfac_rand=kfac_rand,
-                     build_extra_state=build_extra_state)
+                     build_extra_state=build_extra_state, slices=False)

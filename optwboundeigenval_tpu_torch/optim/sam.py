@@ -32,4 +32,4 @@ def SAM(base: Optimizer, rho: float = 0.05, adaptive: bool = False) -> Optimizer
         _, grads2 = grad_fn(perturbed)
         return base.step(grads2, state, params)
 
-    return Optimizer(name="SAM", init=base.init, step=step)
+    return Optimizer(name="SAM", init=base.init, step=step, slices=base.slices)

@@ -1,4 +1,5 @@
-"""Data-parallel training over ``torch.distributed`` (``mesh.py``)."""
+"""Data and tensor parallelism over ``torch.distributed`` (``mesh.py``,
+``sharding.py``)."""
 
 from optwboundeigenval_tpu_torch.parallel.mesh import (  # noqa: F401
     Mesh,
@@ -6,4 +7,9 @@ from optwboundeigenval_tpu_torch.parallel.mesh import (  # noqa: F401
     make_mesh,
     replicate,
     shard_batch,
+)
+from optwboundeigenval_tpu_torch.parallel.sharding import (  # noqa: F401
+    gather_params,
+    infer_param_specs,
+    shard_params,
 )

@@ -25,10 +25,14 @@ is ignored, and a model with active dropout raises in train mode.
 
 Batches are dicts ``{"x", "y", "w"}``; ``w`` weights each example and
 carries ``w = 0`` on padded rows, so every loss is a weighted mean.
-Under a data-parallel mesh (``parallel/mesh.py``, ``active``) a loss is
-this rank's share of the global batch's: its rows' weighted sum over the
-all-reduced total weight (W-BCE's class counts all-reduced too), so the
-ranks' shares sum to the one-device loss.
+Under a mesh (``parallel/mesh.py``, ``active``) a loss is this rank's
+share of the global batch's: its rows' weighted sum over the total weight
+all-reduced over the ``data`` group (W-BCE's class counts too), so the
+shares of one rank per data coordinate sum to the one-device loss.
+``loss_fn`` divides that share by the ``model`` axis, so that the sum over
+every rank is the loss (the reduction convention of ``parallel/mesh.py``).
+Under an active sharding (``parallel/sharding.py``) ``_apply``, the one
+place that calls the model, gathers the sharded leaves first.
 """
 
 from __future__ import annotations
@@ -152,6 +156,9 @@ class Task:
         return params, state
 
     def _apply(self, params, model_state, x, train, stats_out=None, key=None):
+        sharding = meshlib.current_sharding()
+        if sharding is not None:
+            params = sharding.gather(params)
         with dropout.keyed(key if self.has_dropout else None):
             return functional_call(self.model, (params, model_state), (x,),
                                    {"train": train, "stats_out": stats_out})
@@ -163,7 +170,9 @@ class Task:
 
         def f(params, batch):
             out = self._apply(params, model_state, batch["x"], True, key=key)
-            return self.loss(out, batch["y"], batch.get("w"))
+            loss = self.loss(out, batch["y"], batch.get("w"))
+            mesh = meshlib.current()
+            return loss if mesh is None or mesh.model == 1 else loss / mesh.model
 
         return f
 

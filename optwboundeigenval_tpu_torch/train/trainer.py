@@ -76,7 +76,15 @@ as it is:
   ``model_load``, the losses, curvature products, BatchNorm statistics,
   K-FAC statistics and eigensolver decisions reduce over the ranks
   (``active``), ``test_model`` gathers each rank's outputs, and rank 0
-  alone writes logs and checkpoints.
+  alone writes logs and checkpoints.  On a ``(data, model)`` mesh,
+  assigning ``params`` sharded by ``parallel.shard_params`` makes the
+  trainer keep this rank's slices of the large leaves: the
+  params-shaped ``opt_state`` and ``v`` are cut to them too, the steps,
+  epochs, eigensolvers, LOBPCG and evaluation run under that sharding
+  (the model gathers its weights, ``parallel/sharding.py``), optimizers
+  that work on whole layers (K-FAC, Entropy-SGD) step on the gathered
+  tree, and ``save``/``save_full`` write the gathered tree, so the files
+  equal one process's; ``resume`` and ``model_load`` cut them again.
 """
 
 from __future__ import annotations
@@ -95,6 +103,7 @@ from optwboundeigenval_tpu_torch.models import dropout
 from optwboundeigenval_tpu_torch.ops import curvature, eigen, kfac, spectral
 from optwboundeigenval_tpu_torch.optim.api import Optimizer
 from optwboundeigenval_tpu_torch.parallel import mesh as meshlib
+from optwboundeigenval_tpu_torch.parallel.sharding import Sharded, gather_params
 from optwboundeigenval_tpu_torch.train import checkpoints
 from optwboundeigenval_tpu_torch.train.task import Task
 from optwboundeigenval_tpu_torch.utils.timing import Timers
@@ -143,10 +152,11 @@ def _clone(tree):
 
 
 def _on_mesh(method):
-    """Run ``method`` with the trainer's mesh active (``parallel/mesh.py``)."""
+    """Run ``method`` with the trainer's mesh and sharding active
+    (``parallel/mesh.py``)."""
     @functools.wraps(method)
     def run(self, *args, **kwargs):
-        with meshlib.active(self.mesh):
+        with meshlib.active(self.mesh, self._sharding):
             return method(self, *args, **kwargs)
     return run
 
@@ -363,6 +373,7 @@ class SpectralTrainer:
         self.log_file = os.path.join(log_dir, self.header2 + ".log")
         self.verbose_log_file = os.path.join(log_dir, self.header2 + "_verbose.log")
 
+        self._sharding = None  # set by assigning sharded params
         self.params = None
         self.model_state = None
         self.opt_state = None
@@ -402,6 +413,30 @@ class SpectralTrainer:
         self.v = tree_uniform_like(self.params)
         self._replicate()
 
+    @property
+    def params(self):
+        return self._params
+
+    @params.setter
+    def params(self, value) -> None:
+        """Params from ``parallel.shard_params`` (a ``Sharded`` tree) shard
+        the trainer: from then on it keeps this rank's slices, and the
+        params-shaped leaves of ``opt_state`` and ``v`` are cut to them
+        here."""
+        sharding = getattr(value, "sharding", None)
+        if sharding is not None and self._sharding is None:
+            if self.mesh is None or sharding.mesh is not self.mesh:
+                raise ValueError("sharded params need the trainer's mesh")
+            self._sharding = sharding
+            self.opt_state = sharding.local(self.opt_state)
+            if self.v is not None:
+                self.v = Sharded(sharding.local(self.v), sharding)
+        self._params = value
+
+    def _full(self, tree):
+        """``tree`` with its sharded leaves gathered (every rank calls it)."""
+        return gather_params(tree, self._sharding)
+
     def _replicate(self) -> None:
         """Under a mesh, rank 0's state on every rank."""
         for tree in (self.params, self.model_state, self.opt_state, self.v):
@@ -426,7 +461,9 @@ class SpectralTrainer:
 
     @property
     def ndim(self) -> int:
-        return sum(p.numel() for p in self.params.values())
+        """The number of parameters (of the full leaves under a sharding)."""
+        sh = self._sharding
+        return sum(sh.numel(k, p) if sh else p.numel() for k, p in self.params.items())
 
     def put_batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         """Batch (numpy arrays or tensors) to tensors on the trainer's device."""
@@ -500,7 +537,7 @@ class SpectralTrainer:
                 "gradg_norm": zero,
             }
 
-        new_params, new_opt_state = self.optimizer.step(
+        new_params, new_opt_state = self._opt_step(
             direction, opt_state, params, **self._opt_kwargs(loss_fn, model_state, batch))
         if self.optimizer.wants_err:
             # the closure's loss and error % (optim.py:24)
@@ -509,6 +546,17 @@ class SpectralTrainer:
         # BN running statistics at the PRE-step params (opt.py:180-186, 421)
         new_model_state = self._advance_stats(params, model_state, batch, key)
         return new_params, new_model_state, new_opt_state, new_v, metrics
+
+    def _opt_step(self, direction, opt_state, params, **kw):
+        """The optimizer's step; under a sharding an optimizer that works on
+        whole layers (``slices=False``) steps on the gathered trees, and
+        this rank keeps the slices of its result."""
+        sh = self._sharding
+        if sh is None or self.optimizer.slices:
+            return self.optimizer.step(direction, opt_state, params, **kw)
+        new_params, new_state = self.optimizer.step(
+            sh.gather_tree(direction), sh.gather_tree(opt_state), sh.gather_tree(params), **kw)
+        return sh.local(new_params), sh.local(new_state)
 
     def _opt_kwargs(self, loss_fn, model_state, batch):
         """The optimizer protocol's keywords for this batch (JAX trainer
@@ -657,7 +705,7 @@ class SpectralTrainer:
     def trace_file(self, epoch: int) -> str:
         """Where ``profile_dir``'s trace of ``epoch`` goes (one file a rank
         under a mesh of several)."""
-        rank = f"_rank{self.mesh.rank}" if self.mesh is not None and self.mesh.data > 1 else ""
+        rank = f"_rank{self.mesh.rank}" if self.mesh is not None and self.mesh.world > 1 else ""
         return os.path.join(self.profile_dir, f"{self.header2}_epoch{epoch}{rank}.json")
 
     @_on_mesh
@@ -995,7 +1043,7 @@ class SpectralTrainer:
             loader = _as_loader((x, y), self.batch_size)
         if isinstance(other_classes, int):
             other_classes = [other_classes]
-        if self.mesh is not None and self.mesh.data > 1:
+        if self.mesh is not None and self.mesh.world > 1:
             loader = self._eval_outputs_sharded(loader, crops)
         tf = self.test_func
         f_list, acc_list, f1_list, sizes = [], [], [], []
@@ -1057,11 +1105,12 @@ class SpectralTrainer:
         ``(B, crops, H, W, C)`` and gives the mean over its crops."""
         batch = self.put_batch(data)
         xb = batch["x"]
-        if crops and xb.dim() == 5:
-            flat = {**batch, "x": xb.reshape((-1,) + tuple(xb.shape[2:]))}
-            out = self.task.predict(self.params, self.model_state, flat)
-            return out.reshape(xb.shape[0], xb.shape[1], -1).mean(dim=1)
-        return self.task.predict(self.params, self.model_state, batch)
+        with meshlib.active(self.mesh, self._sharding):  # the gather of the weights
+            if crops and xb.dim() == 5:
+                flat = {**batch, "x": xb.reshape((-1,) + tuple(xb.shape[2:]))}
+                out = self.task.predict(self.params, self.model_state, flat)
+                return out.reshape(xb.shape[0], xb.shape[1], -1).mean(dim=1)
+            return self.task.predict(self.params, self.model_state, batch)
 
     def _eval_is_contributor(self) -> bool:
         """Whether this rank's evaluation rows count (JAX trainer lines
@@ -1076,9 +1125,9 @@ class SpectralTrainer:
         runs the forward pass on its local rows only, and the outputs,
         labels and weights are gathered, never the inputs.  A
         ``host_shard`` loader's batches are the rank's rows already; from
-        a loader that gives every rank the same batches each rank takes
-        its stripe of ``ceil(B / ranks)`` rows, the tail clamped and
-        weighted 0.  Rows of weight 0 are dropped after the gather; the
+        a loader that gives every rank the same batches each rank of the
+        world takes its stripe of ``ceil(B / ranks)`` rows, the tail
+        clamped and weighted 0.  Rows of weight 0 are dropped after the gather; the
         outputs keep their dtype (JAX casts them to float32)."""
         mesh = self.mesh
         counts = torch.tensor([len(loader)], device=mesh.device)
@@ -1093,7 +1142,7 @@ class SpectralTrainer:
             data = dict(data)
             if not sharded:
                 n = len(w)
-                chunk = -(-n // mesh.data)
+                chunk = -(-n // mesh.world)
                 idx = np.arange(mesh.rank * chunk, (mesh.rank + 1) * chunk)
                 valid = idx < n
                 idx = np.minimum(idx, n - 1)
@@ -1215,9 +1264,13 @@ class SpectralTrainer:
                 # and the uniform start can span an invariant subspace:
                 # perturb it slightly (the JAX trainer's protocol)
                 if start is None:
-                    start = {name: torch.randn(t.shape, generator=self.generator,
+                    shapes = self._sharding.shapes if self._sharding else {}
+                    start = {name: torch.randn(shapes.get(name, t.shape),
+                                               generator=self.generator,
                                                dtype=t.dtype).to(t.device)
                              for name, t in self.params.items()}
+                if self._sharding is not None:
+                    start = self._sharding.local(start)
                 v0 = tree_axpy(1e-2 / tree_norm(start), start, u)
                 res = eigen.lanczos_spectrum(hvp_fn, v0, k=k, m=m_lz)
             else:
@@ -1235,25 +1288,29 @@ class SpectralTrainer:
     # checkpoints (opt.py:765-769, 1041-1071)
     # ------------------------------------------------------------------
     def save(self, tail: str = CKPT):
+        """The parameters, BN statistics, eigenvector and epoch; under a
+        mesh rank 0 writes them, gathered under a sharding."""
+        params, v = self._full(self.params), self._full(self.v)
         if not self._writer:
             return
         checkpoints.save_checkpoint(
             os.path.join(self.model_dir, self.header2 + tail),
-            {"params": self.params, "model_state": self.model_state,
-             "v": self.v, "epoch": self.i})
+            {"params": params, "model_state": self.model_state,
+             "v": v, "epoch": self.i})
 
     def save_full(self, tail: str = CKPT_FULL):
         """Everything an exact resume needs: ``save``'s payload plus the
         optimizer state, the best-model tracking, the CoV window, the
         LOBPCG preconditioner with its refit counter and the dropout keys
         drawn (the JAX package's checkpoint leaves the first two out).
-        Under a mesh rank 0 writes it."""
+        Under a mesh rank 0 writes it, gathered under a sharding."""
+        full = [self._full(t) for t in (self.params, self.opt_state, self.v)]
         if not self._writer:
             return
         checkpoints.save_checkpoint(
             os.path.join(self.model_dir, self.header2 + tail),
-            {"params": self.params, "model_state": self.model_state,
-             "opt_state": self.opt_state, "v": self.v, "epoch": self.i,
+            {"params": full[0], "model_state": self.model_state,
+             "opt_state": full[1], "v": full[2], "epoch": self.i,
              "best": [self.best_val_acc, self.best_h, self.best_rho,
                       float(self.best_iter)],
              "h_hist": list(self._h_hist),
@@ -1263,12 +1320,12 @@ class SpectralTrainer:
     def resume(self, fname: Optional[str] = None):
         """Restore a ``save_full`` checkpoint; the next ``train()``
         continues from the epoch after it.  Under a mesh rank 0 reads it
-        and every rank takes its payload."""
+        and every rank takes its payload (its slices under a sharding)."""
         self.init_state()
         if fname is None:
             fname = os.path.join(self.model_dir, self.header2 + CKPT_FULL)
-        payload = self._broadcast(checkpoints.load_checkpoint(fname) if self._writer else None)
-        self._load_state(payload)
+        payload = self._load_state(
+            self._broadcast(checkpoints.load_checkpoint(fname) if self._writer else None))
         self.opt_state = checkpoints.restore_like(self.opt_state, payload["opt_state"])
         self.i = int(payload["epoch"])
         b = payload["best"]
@@ -1296,10 +1353,15 @@ class SpectralTrainer:
         self._load_state(self._broadcast(payload))
 
     def _load_state(self, payload):
+        """Take a checkpoint's params, BN statistics and eigenvector (this
+        rank's slices under a sharding); returns the payload so cut."""
+        if self._sharding is not None:
+            payload = self._sharding.local(payload)
         self.params = checkpoints.restore_like(self.params, payload["params"])
         self.model_state = checkpoints.restore_like(self.model_state,
                                                     payload["model_state"])
         self.v = checkpoints.restore_like(self.v, payload["v"])
+        return payload
 
     # ------------------------------------------------------------------
     # log summary (reference parse(), opt.py:1244-1257)

@@ -405,12 +405,12 @@ def test_trainer_takes_every_jax_keyword():
     dict(mem_track=True), dict(profile_epoch=1), dict(profile_dir="trace"),
     dict(mesh="data")])
 def test_unported_trainer_options_raise(bad):
-    """The trainer's execution knobs and the ``data`` mesh are ported: each
-    builds; the ``model`` axis alone raises."""
+    """The trainer's execution knobs and the mesh are ported: each builds;
+    a ``model`` axis needs as many ranks."""
     from optwboundeigenval_tpu_torch.parallel import make_mesh
 
     if "mesh" in bad:
-        with pytest.raises(NotImplementedError, match="item 12"):
+        with pytest.raises(ValueError, match="world of 1"):
             make_mesh(model=2, device="cpu")
         bad = {"mesh": make_mesh(device="cpu")}
     tr = SpectralTrainer(Task(model=ForestNet()), sgd(0.1), device="cpu", **bad)

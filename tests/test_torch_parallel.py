@@ -533,7 +533,7 @@ def test_host_shard_partitions_exactly():
 
 
 def test_make_mesh_model_axis_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 12"):
+    with pytest.raises(ValueError, match="world of 1"):
         meshlib.make_mesh(model=2, device="cpu")
     mesh = meshlib.make_mesh(device="cpu")  # no process group: a world of one
     assert (mesh.data, mesh.model, mesh.rank, mesh.writer) == (1, 1, 0, True)

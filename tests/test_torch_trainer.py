@@ -130,14 +130,14 @@ def test_entry_points_need_the_card_unless_told():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             SpectralTrainer(task, topt.sgd(0.1))
-    # the execution knobs and the data mesh build; the model axis raises
+    # the execution knobs and the mesh build; a model axis needs its ranks
     from optwboundeigenval_tpu_torch.parallel import make_mesh
 
     for knob in (dict(scan_steps=4), dict(donate=True), dict(mem_track=True),
                  dict(profile_dir="p"), dict(mesh=make_mesh(device="cpu"))):
         tr = SpectralTrainer(task, topt.sgd(0.1), device="cpu", **knob)
         assert all(getattr(tr, k) is v or getattr(tr, k) == v for k, v in knob.items())
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(ValueError, match="world of 1"):
         make_mesh(model=2, device="cpu")
     # lobpcg is ported: it builds, and refuses what it does not compose with
     assert SpectralTrainer(task, topt.sgd(0.1), device="cpu", lobpcg=True).lobpcg
