@@ -3,12 +3,14 @@
 Phases (any failure exits non-zero and prints no result line):
 
 1. the card: ``nvidia-smi`` name and power limit, torch and CUDA
-   versions; TF32 is switched off for convolutions and matmuls;
+   versions; TF32 is switched off for convolutions and matmuls through
+   ``utils/precision.set_tf32``, as ``driver.run`` sets it by default, and
+   both flags are printed;
 2. build every CUDA kernel of the port with ``nvcc`` (one process per
    source, started together) and print the build time;
 3. hold every kernel against its plain PyTorch version on the card, at
    the shapes the main path gives it plus ragged and large ones: K1 in
-   float32 and float64, accumulate and init, over the DenseNet-40 tree
+   float32, float64 and bfloat16, accumulate and init, over the DenseNet-40 tree
    in one call, a ragged tree (an unaligned view, an empty leaf), single
    leaves, a DenseNet-121-sized tree and a tree longer than the launch
    table; then time kernel, plain version and the one PyTorch call of the
@@ -184,9 +186,31 @@ Phases (any failure exits non-zero and prints no result line):
     ``host_shard`` loaders fed by the data coordinate and ``test_model``
     through them: rank 0's TSV rows, every rank's state and evaluation
     against one process, each row counted once;
-18. a ``{"kernels": [...]}`` line (K1's launches summed over phases 4, 7,
-    8, 10, 11, 12, 13, 15, 16 and 17, each counted from 0 just before its
-    run), the card's name and power limit, and last the ``{"ok": true,
+18. the models' compute dtype, TF32 off as ``driver.run`` sets it: (a)
+    ``cifar10_densenet_mu0_01_K0`` with ``model=DenseNet3(dtype=torch.bfloat16)``
+    and ``max_iter=1`` through ``driver.run`` on the first 128 rows of each
+    split (4 steps, the recipe's remat and augmentation, as phase 10 runs
+    the float32 model): s/epoch, steps/s, mean ``pow_iters``, the peak
+    memory, a profiled step's busy share and kernel count; the JAX bench's
+    DenseNet-40 HVP rate (batch 128, remat) at bfloat16 and float32
+    compute, median (min-max) of 3; (b) 2 steps of it with ``hvp_micro=2,
+    remat=False``, K1 launching ``2 * (pow_iters + 2)`` times a step on
+    float32 leaves, every call bit-equal to its plain version; (c)
+    ``chestxray_mu0_01_K0`` with ``CXRModel("densenet121", outnum=14,
+    dtype=torch.bfloat16)`` at 224 px, batch 4, 2 steps through
+    ``driver.run``: steps/s, mean ``pow_iters``, the peak memory, a profiled
+    step; (d) a bfloat16 and a float32 ``train_step`` of the recipe on the
+    card from one state and batch (``rho``, ``g``, the loss, the update and
+    the BatchNorm statistics within the ``BF16_*`` bounds), and a bfloat16
+    DenseNet-40 forward, gradient and HVP on the card against the port's
+    bfloat16 on the CPU (the tests' rule); (e) one ``usps_cnn_mu0_01_K0``
+    step with ``CNNUSPS(conv_impl='gemm', dtype=torch.bfloat16)`` (bfloat16
+    conv parameters beside float32 dense ones) and ``hvp_micro=2``, K1's
+    bfloat16 and float32 entries one launch each a call, every call
+    bit-equal to its plain version;
+19. a ``{"kernels": [...]}`` line (K1's launches summed over phases 4, 7,
+    8, 10, 11, 12, 13, 15, 16, 17 and 18, each counted from 0 just before
+    its run), the card's name and power limit, and last the ``{"ok": true,
     "device": ...}`` line.
 
 Weights are random (seed 1226); the data are the real sets when they are
@@ -262,14 +286,14 @@ def cuda_time_ms(fn, reps: int, warmup: int = 3) -> float:
 
 
 def phase_card():
+    from optwboundeigenval_tpu_torch.utils import precision
+
     smi = nvidia_smi()
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    flags = precision.set_tf32(False)  # as driver.run sets it by default
     log(f"card: {smi}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
-    log(f"tf32: cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}, "
-        f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
+    log(precision.describe(flags))
     return smi
 
 
@@ -408,9 +432,11 @@ def phase_kernel_check(leaf_shapes):
     cases.append(("single leaf (1000,) unaligned",
                   lambda dt: _tree([(1000,)], dt, g, (0,))[0]))
     max_err, checked = 0.0, 0
-    for dtype in (torch.float32, torch.float64):
+    for dtype in (torch.float32, torch.float64, torch.bfloat16):
         eps = torch.finfo(dtype).eps
-        alpha = torch.tensor(0.5 + 1.0 / 3.0, device="cuda", dtype=dtype)
+        # a bfloat16 tree sums in float32 against a float32 alpha
+        alpha = torch.tensor(0.5 + 1.0 / 3.0, device="cuda",
+                             dtype=torch.float32 if dtype == torch.bfloat16 else dtype)
         for name, make in cases:
             for init in (False, True):
                 acc, delta = make(dtype), make(dtype)
@@ -437,10 +463,10 @@ def phase_kernel_check(leaf_shapes):
                     if not bool((err <= eps * w.abs()).all()):
                         fail(f"{label}: max abs err {err.max().item():.3e} over 1 ulp")
                     if err.numel():
-                        max_err = max(max_err, err.max().item())
+                        max_err = max(max_err, err.float().max().item())
                 checked += 1
     log(f"axpy_accumulate: {checked} calls ({len(cases)} trees and leaves x float32, "
-        f"float64 x accumulate, init) match the plain version, max abs err "
+        f"float64, bfloat16 x accumulate, init) match the plain version, max abs err "
         f"{max_err:.3e} (tolerance 1 ulp); the {len(over)}-leaf tree took "
         f"{-(-len(over) // cap)} launches")
 
@@ -2663,13 +2689,13 @@ def _rank_main(run):
     --port P --out DIR --device D [--phase tp2|tp4]``: joins the group,
     runs ``run(args)`` and leaves it."""
     from optwboundeigenval_tpu_torch.parallel import init_distributed
+    from optwboundeigenval_tpu_torch.utils import precision
 
     args = dict(zip(sys.argv[1::2], sys.argv[2::2]))
     torch.set_num_threads(2)  # the ranks share the host's cores with the parent
     init_distributed(f"127.0.0.1:{args['--port']}", num_processes=int(args["--world"]),
                      process_id=int(args["--rank"]), backend="gloo")
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    precision.set_tf32(False)
     try:
         run(args)
     finally:
@@ -3160,6 +3186,350 @@ def phase_model_axis(device="cuda", px=CXR_PX):
     return launches
 
 
+# phase 18: the models' compute dtype.  The card's bfloat16 step against its
+# float32 step, from one state and one batch: rho and g within 5% (the CPU
+# tests' rho bound against the JAX package); the loss before the step within
+# 2e-2 and the BatchNorm statistics within 2e-2 (the tests' bound on the
+# statistics); the update within 0.5 of the float32 one by the 2-norm of the
+# tree.  The update carries mu * grad g, and the vGHv behind grad g is the
+# least accurate product at bfloat16: the JAX package's own bfloat16 vGHv
+# sits 0.15-0.25 from its float32 one leaf by leaf, and its bfloat16 step
+# 0.13 from its float32 step, on the tests' depth-10 DenseNet3
+# (tests/test_torch_dtype.py); the port's step on DenseNet-40 sat 0.23
+# from its float32 step on the CPU.  A lost cast or a bfloat16 statistic
+# shows as O(1).
+BF16_RHO_RTOL = 5e-2
+BF16_F_RTOL = 2e-2
+BF16_STATS_TOL = 2e-2
+BF16_UPDATE_RTOL = 0.5
+
+
+def _bf16_densenet(depth=40):
+    from optwboundeigenval_tpu_torch.models.densenet import DenseNet3
+
+    return DenseNet3(depth=depth, growth_rate=12, num_classes=10, dtype=torch.bfloat16)
+
+
+@contextlib.contextmanager
+def _k1_recorded():
+    """Every K1 call of the curvature products inside, held bit for bit
+    against its plain version on clones of the same accumulator; yields
+    ``{"calls", "dtypes", "mismatch"}`` (the count of leaves that differ
+    stays on the card until it is read)."""
+    from optwboundeigenval_tpu_torch.ops import curvature
+    from optwboundeigenval_tpu_torch.ops import pallas_kernels as pk
+
+    rec = {"calls": 0, "dtypes": set(), "mismatch": []}
+
+    def recording(acc, delta, alpha, init=False):
+        want = pk.axpy_accumulate_plain([a.clone() for a in acc], delta, alpha, init=init)
+        out = pk.axpy_accumulate(acc, delta, alpha, init=init)
+        rec["calls"] += 1
+        rec["dtypes"] |= {str(a.dtype).removeprefix("torch.") for a in acc}
+        diff = torch._foreach_sub([a.float() for a in out], [w.float() for w in want])
+        rec["mismatch"].append(torch.stack(torch._foreach_norm(diff)).ne(0).sum())
+        return out
+
+    curvature.axpy_accumulate, real = recording, curvature.axpy_accumulate
+    try:
+        yield rec
+    finally:
+        curvature.axpy_accumulate = real
+
+
+def _mismatched(rec):
+    return int(torch.stack(rec["mismatch"]).sum()) if rec["mismatch"] else 0
+
+
+def bf16_recipe(device="cuda", rows=128):
+    """Phase 18 (a): ``cifar10_densenet_mu0_01_K0`` with its model at
+    bfloat16 compute, ``max_iter=1``, through ``driver.run`` on the first
+    ``rows`` rows of each split, the recipe's remat and augmentation as
+    phase 10 runs it.  Returns K1's launches (none: no micro-batching)."""
+    from optwboundeigenval_tpu_torch.configs import cifar10_densenet_mu0_01_K0 as cfg
+    from optwboundeigenval_tpu_torch.data.loaders import ArrayLoader
+
+    cuda = device == "cuda"
+    with tempfile.TemporaryDirectory() as tmp:
+        opts = cfg.options(max_iter=1, device=device, log_dir=f"{tmp}/logs",
+                           model_dir=f"{tmp}/models", model=_bf16_densenet())
+        if not opts["remat"] or opts["train_loader"].augment is None:
+            fail("bf16 recipe: the recipe lost augment or remat")
+        bs, aug = opts["batch_size"], opts["train_loader"].augment
+        cut = lambda ld, **kw: ArrayLoader(ld.x[:rows], ld.y[:rows], bs, **kw)
+        opts["train_loader"] = cut(opts["train_loader"], shuffle=True, seed=1226, augment=aug)
+        opts["valid_loader"] = cut(opts["valid_loader"])
+        opts["train_loader_na"] = cut(opts["train_loader_na"])
+        opts["test_loader"] = [cut(opts["test_loader"][0])]
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        label = "cifar10_densenet_mu0_01_K0 bf16"
+        trainer, batch, launches = run_epochs(label, opts, device, 1)
+        mem = torch.cuda.max_memory_allocated() if cuda else "not measured"
+    out = trainer.task.predict(trainer.params, trainer.model_state, batch)
+    dtypes = {str(t.dtype) for t in list(trainer.params.values())
+              + list(trainer.model_state.values())}
+    log(f"{label}: remat {trainer.remat}, pow_iters per step {trainer.epoch_pow_iters}, "
+        f"max_memory_allocated {mem} B, logits {out.dtype}, params and statistics {dtypes}")
+    if out.dtype != torch.bfloat16 or dtypes != {"torch.float32"}:
+        fail(f"{label}: logits {out.dtype}, params and statistics {dtypes}")
+    if cuda:
+        phase_profile(trainer, batch, label)
+    return launches
+
+
+def hvp_rates(device="cuda", batch=128, reps=3, counts=(2, 8)):
+    """Phase 18 (a): the JAX bench's DenseNet-40 HVP rate (``bench.py``,
+    batch 128, ``remat``: each HVP recomputes forward and gradient) at
+    bfloat16 and at float32 compute: HVPs/s from the difference of two
+    runs of ``counts`` normalised HVPs, median (min-max) of ``reps``."""
+    from optwboundeigenval_tpu_torch.models.densenet import DenseNet3
+    from optwboundeigenval_tpu_torch.ops import curvature
+    from optwboundeigenval_tpu_torch.train.task import Task
+    from optwboundeigenval_tpu_torch.utils.tree import tree_norm, tree_scale, tree_uniform_like
+
+    rng = np.random.default_rng(0)
+    b = {"x": torch.from_numpy(rng.normal(size=(batch, 32, 32, 3)).astype(np.float32)),
+         "y": torch.from_numpy(rng.integers(0, 10, size=batch).astype(np.int32)),
+         "w": torch.ones(batch)}
+    b = {k: t.to(device) for k, t in b.items()}
+    out = {}
+    for label, dtype in (("bfloat16", torch.bfloat16), ("float32", None)):
+        task = Task(model=DenseNet3(depth=40, growth_rate=12, num_classes=10, dtype=dtype),
+                    has_batch_stats=True)
+        params, state = task.init(torch.Generator().manual_seed(1226), device)
+        _, hvp_fn = curvature.recompute_hvp(task.loss_fn(state), params, b)
+
+        def run(n):
+            v = tree_uniform_like(params)
+            _sync(device)
+            t0 = time.perf_counter()
+            for _ in range(n):
+                hv = hvp_fn(v)
+                v = tree_scale(1.0 / tree_norm(hv), hv)
+            _sync(device)
+            return time.perf_counter() - t0
+
+        run(1)  # warm
+        rates = sorted((counts[1] - counts[0]) / (run(counts[1]) - run(counts[0]))
+                       for _ in range(reps))
+        out[label] = rates
+        log(f"DenseNet-40 HVP rate, batch {batch}, remat, {label} compute: "
+            f"{rates[len(rates) // 2]:.3f} HVPs/s, median (min-max) of {reps}: "
+            f"({rates[0]:.3f}-{rates[-1]:.3f})")
+        del hvp_fn, params
+    return out
+
+
+def bf16_k1_steps(device="cuda", steps=2):
+    """Phase 18 (b): 2 steps of the recipe at bfloat16 compute with
+    ``hvp_micro=2, remat=False``: K1 launches ``2 * (pow_iters + 2)`` times
+    a step, every accumulate's leaves float32, every call bit-equal to its
+    plain version.  Returns K1's launches."""
+    from optwboundeigenval_tpu_torch.configs import cifar10_densenet_mu0_01_K0 as cfg
+    from optwboundeigenval_tpu_torch.ops import pallas_kernels as pk
+    from optwboundeigenval_tpu_torch.train.driver import build_trainer
+
+    opts = cfg.options(hvp_micro=2, remat=False, augment=False, device=device,
+                       model=_bf16_densenet())
+    tr = build_trainer(opts)
+    batches = iter(opts["train_loader"])
+    pk.axpy_accumulate.launches = 0
+    with _k1_recorded() as rec:
+        for i in range(steps):
+            before = pk.axpy_accumulate.launches
+            _sync(device)
+            t0 = time.perf_counter()
+            m = tr.train_step(next(batches))
+            _sync(device)
+            launched = pk.axpy_accumulate.launches - before
+            want = tr.hvp_micro * (m["pow_iters"] + 2)
+            log(f"bf16 hvp_micro=2 step {i}: rho {m['rho']:.6g} pow_iters {m['pow_iters']} "
+                f"g {m['g']:.6g} step_ms {1e3 * (time.perf_counter() - t0):.1f} "
+                f"K1_launches {launched} (expected {want})")
+            if not (m["step_ok"] and math.isfinite(m["rho"])):
+                fail(f"bf16 hvp_micro=2 step {i}: {m}")
+            if device == "cuda" and launched != want:
+                fail(f"bf16 hvp_micro=2 step {i}: {launched} K1 launches, expected {want}")
+    bad = _mismatched(rec)
+    log(f"bf16 hvp_micro=2: {rec['calls']} K1 calls on leaves of {sorted(rec['dtypes'])}, "
+        f"{bad} leaves differing from the plain version")
+    if rec["dtypes"] != {"float32"} or bad:
+        fail(f"bf16 hvp_micro=2: K1 on {rec['dtypes']}, {bad} leaves differing")
+    return pk.axpy_accumulate.launches
+
+
+def bf16_cxr(device="cuda", px=CXR_PX, rows=(8, 4, 4)):
+    """Phase 18 (c): ``chestxray_mu0_01_K0`` with ``CXRModel(densenet121)``
+    at bfloat16 compute, 224 px, batch 4, 2 steps through ``driver.run``
+    (the stand-ins of phase 13, cut to 4 rows of each evaluation set).
+    Returns K1's launches (none)."""
+    from optwboundeigenval_tpu_torch.configs import chestxray_mu0_01_K0 as cfg
+    from optwboundeigenval_tpu_torch.models.cxr import CXRModel
+
+    cuda = device == "cuda"
+    with tempfile.TemporaryDirectory() as tmp:
+        opts = cfg.options(max_iter=1, device=device, log_dir=f"{tmp}/logs",
+                           model_dir=f"{tmp}/models", **cxr_loaders(rows, px),
+                           model=CXRModel("densenet121", outnum=14, dtype=torch.bfloat16))
+        if not opts["remat"] or opts["batch_size"] != 4:
+            fail("bf16 chestxray: the recipe lost remat or batch 4")
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        label = "chestxray_mu0_01_K0 bf16"
+        trainer, batch, launches = run_epochs(label, opts, device, 1)
+        mem = torch.cuda.max_memory_allocated() if cuda else "not measured"
+    out = trainer.task.predict(trainer.params, trainer.model_state, batch)
+    log(f"{label}: {trainer.ndim} parameters at {px} px, pow_iters per step "
+        f"{trainer.epoch_pow_iters}, max_memory_allocated {mem} B, logits {out.dtype}")
+    if out.dtype != torch.bfloat16:
+        fail(f"{label}: logits {out.dtype}")
+    if cuda:
+        phase_profile(trainer, batch, label)
+    return launches
+
+
+def _tree_rel(a, b):
+    """``||a - b|| / ||b||`` over the whole tree, in float32."""
+    num = sum(float(((x.float() - b[k].float()) ** 2).sum()) for k, x in a.items())
+    den = sum(float((b[k].float() ** 2).sum()) for k in a)
+    return math.sqrt(num / max(den, 1e-300))
+
+
+def bf16_card_vs_card(device="cuda"):
+    """Phase 18 (d), first half: from one state and one batch, a bfloat16
+    ``train_step`` and a float32 one of the recipe (batch 32, remat)."""
+    from optwboundeigenval_tpu_torch.configs import cifar10_densenet_mu0_01_K0 as cfg
+    from optwboundeigenval_tpu_torch.models.densenet import DenseNet3
+    from optwboundeigenval_tpu_torch.train.driver import build_trainer
+
+    batch = next(iter(cfg.options(device="cpu", augment=False)["train_loader_na"]))
+    res = {}
+    for label, dtype in (("bfloat16", torch.bfloat16), ("float32", None)):
+        tr = build_trainer(cfg.options(device=device, model=DenseNet3(
+            depth=40, growth_rate=12, num_classes=10, dtype=dtype)))
+        tr.init_state()
+        p0 = {k: t.clone() for k, t in tr.params.items()}
+        f = float(tr.task.loss_fn(tr.model_state)(tr.params, tr.put_batch(batch)))
+        m = tr.train_step(batch)
+        res[label] = (m, f, {k: tr.params[k] - p0[k] for k in p0}, tr.model_state)
+    (mb, fb, ub, sb), (mf, ff, uf, sf) = res["bfloat16"], res["float32"]
+    errs = {"rho": abs(mb["rho"] - mf["rho"]) / abs(mf["rho"]),
+            "g": abs(mb["g"] - mf["g"]) / max(abs(mf["g"]), 1e-30),
+            "f": abs(fb - ff) / abs(ff), "update": _tree_rel(ub, uf),
+            "bn_stats": max(float((sb[k] - sf[k]).abs().max()) for k in sf)}
+    bounds = {"rho": BF16_RHO_RTOL, "g": BF16_RHO_RTOL, "f": BF16_F_RTOL,
+              "update": BF16_UPDATE_RTOL, "bn_stats": BF16_STATS_TOL}
+    log(f"bf16 vs float32 step on the card: rho {mb['rho']:.6g} vs {mf['rho']:.6g}, "
+        f"pow_iters {mb['pow_iters']} vs {mf['pow_iters']}, "
+        + ", ".join(f"{k} {v:.3e} (bound {bounds[k]:g})" for k, v in errs.items()))
+    if not all(errs[k] <= bounds[k] for k in errs):
+        fail("bf16 step on the card: disagrees with the float32 step")
+
+
+def bf16_card_vs_cpu(device="cuda", batch_size=8):
+    """Phase 18 (d), second half: a bfloat16 forward, gradient and HVP of
+    DenseNet-40 on the card against the port's bfloat16 on the CPU, within
+    the tests' rule with the CPU's bfloat16 value as ``jb`` and its float32
+    value as ``jf``, by the 2-norm of the logits and of the whole gradient
+    and HVP trees (``tests/test_torch_dtype.py``, TREE_NORM): two bfloat16
+    computations by other convolution kernels (cuDNN's against oneDNN's)
+    part by an ulp here and there at each of the 40 layers, where the CPU's
+    bfloat16 logit can sit on its float32 value at an element."""
+    from optwboundeigenval_tpu_torch.configs import cifar10_densenet_mu0_01_K0 as cfg
+    from optwboundeigenval_tpu_torch.models.densenet import DenseNet3
+    from optwboundeigenval_tpu_torch.ops import curvature
+    from optwboundeigenval_tpu_torch.train.task import Task
+    from optwboundeigenval_tpu_torch.utils.tree import tree_uniform_like
+
+    ld = cfg.options(device="cpu", augment=False)["train_loader_na"]
+    b = {k: torch.as_tensor(v[:batch_size]) for k, v in next(iter(ld)).items()}
+    params, state = Task(model=DenseNet3(depth=40, growth_rate=12, num_classes=10),
+                         has_batch_stats=True).init(torch.Generator().manual_seed(7), "cpu")
+    v = {k: t + 1e-2 * torch.randn(t.shape, generator=torch.Generator().manual_seed(8))
+         for k, t in tree_uniform_like(params).items()}
+    got = {}
+    for label, dev, dtype in (("card bf16", device, torch.bfloat16),
+                              ("cpu bf16", "cpu", torch.bfloat16), ("cpu f32", "cpu", None)):
+        task = Task(model=DenseNet3(depth=40, growth_rate=12, num_classes=10, dtype=dtype),
+                    has_batch_stats=True)
+        on = lambda t: {k: x.to(dev) for k, x in t.items()}
+        p, s, bb, vv = on(params), on(state), on(b), on(v)
+        f = task.loss_fn(s)
+        out = task._apply(p, s, bb["x"], True)
+        _, g = curvature.value_and_grad(f, p, bb)
+        hv = curvature.hvp(f, p, bb, vv)
+        got[label] = {"logits": {"": out.float().cpu()},
+                      "grad": {k: t.float().cpu() for k, t in g.items()},
+                      "hvp": {k: t.float().cpu() for k, t in hv.items()}}
+    card, jb, jf = got["card bf16"], got["cpu bf16"], got["cpu f32"]
+    excess = {}
+    for what in ("logits", "grad", "hvp"):
+        err = math.sqrt(sum(float(((card[what][k] - jb[what][k]) ** 2).sum()) for k in jb[what]))
+        own = math.sqrt(sum(float(((jb[what][k] - jf[what][k]) ** 2).sum()) for k in jb[what]))
+        size = math.sqrt(sum(float((jf[what][k] ** 2).sum()) for k in jb[what]))
+        excess[what] = err - (3 * own + 1e-2 * size)
+        log(f"bf16 card vs CPU {what}: ||card - cpu bf16|| {err:.4e}, bound "
+            f"{3 * own + 1e-2 * size:.4e} (cpu bf16 vs f32 {own:.4e}, ||f32|| {size:.4e})")
+    if max(excess.values()) > 0:
+        fail(f"bf16 card vs CPU: over the bound {excess}")
+
+
+def bf16_gemm_usps(device="cuda"):
+    """Phase 18 (e): one ``usps_cnn_mu0_01_K0`` step with the gemm CNNUSPS
+    at bfloat16 compute (its convs' parameters bfloat16, the dense ones
+    float32) and ``hvp_micro=2``: K1 launches its bfloat16 and float32
+    entries, one launch a dtype a call, each call bit-equal to its plain
+    version.  Returns K1's launches."""
+    from optwboundeigenval_tpu_torch.configs import usps_cnn_mu0_01_K0 as cfg
+    from optwboundeigenval_tpu_torch.models.cnn_usps import CNNUSPS
+    from optwboundeigenval_tpu_torch.ops import pallas_kernels as pk
+    from optwboundeigenval_tpu_torch.train.driver import build_trainer
+
+    opts = cfg.options(hvp_micro=2, device=device,
+                       model=CNNUSPS(conv_impl="gemm", dtype=torch.bfloat16))
+    tr = build_trainer(opts)
+    tr.init_state()
+    held = sorted({str(t.dtype).removeprefix("torch.") for t in tr.params.values()})
+    batch = next(iter(opts["train_loader"]))
+    pk.axpy_accumulate.launches = 0
+    with _k1_recorded() as rec:
+        m = tr.train_step(batch)
+        _sync(device)
+    launched, want = pk.axpy_accumulate.launches, 2 * tr.hvp_micro * (m["pow_iters"] + 2)
+    bad = _mismatched(rec)
+    log(f"gemm CNNUSPS bf16 hvp_micro=2 step: params {held}, rho {m['rho']:.6g} pow_iters "
+        f"{m['pow_iters']}, {rec['calls']} K1 calls on leaves of {sorted(rec['dtypes'])}, "
+        f"{launched} launches (expected {want}), {bad} leaves differing from the plain version")
+    if not (m["step_ok"] and math.isfinite(m["rho"])) or held != ["bfloat16", "float32"]:
+        fail(f"gemm CNNUSPS bf16 step: {m}, params {held}")
+    if rec["dtypes"] != {"bfloat16", "float32"} or bad:
+        fail(f"gemm CNNUSPS bf16 step: K1 on {rec['dtypes']}, {bad} leaves differing")
+    if device == "cuda" and launched != want:
+        fail(f"gemm CNNUSPS bf16 step: {launched} K1 launches, expected {want}")
+    return launched
+
+
+def phase_dtype(device="cuda"):
+    """Phase 18: the models' compute dtype.  Returns K1's launches."""
+    t0 = time.perf_counter()
+    launches = bf16_recipe(device)
+    hvp_rates(device)
+    log(f"phase 18: (a) done, {time.perf_counter() - t0:.1f} s in")
+    launches += bf16_k1_steps(device)
+    log(f"phase 18: (b) done, {time.perf_counter() - t0:.1f} s in")
+    launches += bf16_cxr(device)
+    log(f"phase 18: (c) done, {time.perf_counter() - t0:.1f} s in")
+    bf16_card_vs_card(device)
+    bf16_card_vs_cpu(device)
+    log(f"phase 18: (d) done, {time.perf_counter() - t0:.1f} s in")
+    launches += bf16_gemm_usps(device)
+    log(f"phase 18: (e) done, {time.perf_counter() - t0:.1f} s in")
+    return launches
+
+
 def main():
     if "--rank" in sys.argv:
         return _rank_main(tp_rank if "--phase" in sys.argv else mesh_rank)
@@ -3208,6 +3578,8 @@ def main():
     done("phase 16")
     launches += phase_model_axis()
     done("phase 17")
+    launches += phase_dtype()
+    done("phase 18")
     kernels = [{**entry, "launches": launches}]
     log(json.dumps({"kernels": kernels}))
     log(smi)

@@ -33,6 +33,7 @@ from scipy.stats import norm, skewnorm
 
 from optwboundeigenval_tpu_torch.analysis.plots import pyplot
 from optwboundeigenval_tpu_torch.data.loaders import ArrayLoader
+from optwboundeigenval_tpu_torch.utils.precision import host
 
 
 def _broadcast(m, sd, skew):
@@ -79,7 +80,7 @@ def model_outputs(trainer, x: np.ndarray, y: np.ndarray) -> List[tuple]:
         loss, ops = trainer.task.eval_loss(trainer.params, trainer.model_state,
                                            trainer.put_batch(data))
         nreal = int(np.sum(np.asarray(data["w"]) > 0))
-        out.append((float(loss), np.argmax(ops.cpu().numpy()[:nreal], axis=1),
+        out.append((float(loss), np.argmax(host(ops)[:nreal], axis=1),
                     np.asarray(data["y"])[:nreal], np.asarray(data["x"])[:nreal]))
     return out
 

@@ -36,6 +36,7 @@ import torch
 from torch import nn
 
 from optwboundeigenval_tpu_torch.models.gan import DROPOUT
+from optwboundeigenval_tpu_torch.utils.precision import host
 
 
 def bce_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
@@ -183,7 +184,7 @@ def train_cgan(x: np.ndarray, y: np.ndarray, generator: nn.Module, discriminator
 
 @torch.no_grad()
 def _sample(generator: nn.Module, z: torch.Tensor, labels: torch.Tensor) -> np.ndarray:
-    return generator(z, labels, train=False).cpu().numpy()
+    return host(generator(z, labels, train=False))
 
 
 def save_sample(generator, batches_done, latent_dim, n_classes, seed, sample_dir):

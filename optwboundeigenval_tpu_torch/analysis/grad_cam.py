@@ -19,6 +19,7 @@ import torch
 from scipy import ndimage
 
 from optwboundeigenval_tpu_torch.analysis.saliency import _device
+from optwboundeigenval_tpu_torch.utils.precision import host
 
 # matplotlib's "jet" (_cm.py _jet_data): per channel, (x, value) knots
 _JET = {
@@ -72,7 +73,7 @@ def grad_cam(task, params, model_state, x, layer_path: str,
     cam = cam / (cam.amax(dim=(1, 2), keepdim=True) + 1e-8)
     H, W = x.shape[1], x.shape[2]
     return np.stack([ndimage.zoom(c, (H / c.shape[0], W / c.shape[1]), order=1)
-                     for c in cam.cpu().numpy()])
+                     for c in host(cam)])
 
 
 def _jet_lut(n: int = 256) -> np.ndarray:

@@ -30,6 +30,7 @@ from optwboundeigenval_tpu_torch.analysis.grad_cam import grad_cam
 from optwboundeigenval_tpu_torch.analysis.guided_backprop import generate_gradients
 from optwboundeigenval_tpu_torch.analysis.plots import pyplot
 from optwboundeigenval_tpu_torch.analysis.saliency import batch_saliency
+from optwboundeigenval_tpu_torch.utils.precision import host
 
 
 def precision_recall_curve(y_true: np.ndarray, score: np.ndarray):
@@ -99,7 +100,7 @@ def jaccard_of_masks(a: np.ndarray, b: np.ndarray) -> np.ndarray:
 
 def _predict(trainer, x: np.ndarray) -> np.ndarray:
     out = trainer.task.predict(trainer.params, trainer.model_state, trainer.put_batch({"x": x}))
-    return out.cpu().numpy()
+    return host(out)
 
 
 def _sigmoid(s):

@@ -3,7 +3,7 @@
 //   acc_l[i] = acc_l[i] + alpha * delta_l[i]      (accumulate)
 //   acc_l[i] = alpha * delta_l[i]                 (init: acc is never read)
 //
-// for every leaf l of a parameter tree, in float32 or float64.
+// for every leaf l of a parameter tree, in float32, float64 or bfloat16.
 //
 // Replaces the Pallas TPU kernel optwboundeigenval_tpu/ops/pallas_kernels.py
 // ::axpy_accumulate (the running sum of the micro-batched HVP, gradient and
@@ -30,16 +30,28 @@
 //   where the TPU version zero-padded to (512, 128) tiles.
 // * alpha is read from device memory, so the micro-batch weight never syncs
 //   the host.  Nothing is allocated and nothing is synchronised.
+// * bfloat16 leaves (the gemm CNNUSPS at bfloat16 compute holds its conv
+//   parameters in bfloat16, so its gradient, HVP and vGHv trees mix
+//   bfloat16 and float32 leaves): the caller launches once per dtype of the
+//   tree.  Each bfloat16 value is loaded, widened to float32 (exact), the
+//   sum is taken in float32 against a float32 alpha, and it is rounded once,
+//   to nearest even, on the store: 6 bytes a value (4 under init).  This is
+//   the JAX trainer's a + scale * d on such a leaf (float32 by promotion)
+//   cast back to the leaf's dtype; the Pallas kernel itself refuses
+//   bfloat16.
 //
 // The sum is rounded as fl(acc + fl(alpha * delta)): __fmul_rn / __fadd_rn
 // (__dmul_rn / __dadd_rn) keep nvcc from contracting it into one fma, so the
 // kernel agrees bit for bit with the plain PyTorch version acc.add_(delta *
 // alpha) and with the JAX accumulate a + scale * d.  Under init it writes
 // fl(alpha * delta), which is fl(0 + fl(alpha * delta)) but for the sign of an
-// exact zero.
+// exact zero.  In bfloat16 both are taken in float32 and rounded to bfloat16
+// once at the end, as the plain version's (acc.float() + alpha *
+// delta.float()).to(torch.bfloat16).
 
 #include <climits>
 #include <cstdint>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -65,28 +77,49 @@ struct Table {
 static_assert(sizeof(Table<double>) + sizeof(void*) + sizeof(int) <= 32764,
               "the leaf table must fit in the 32,764 bytes of kernel parameters");
 
-template <typename T> struct Vec16;
-template <> struct Vec16<float> { using type = float4; };
-template <> struct Vec16<double> { using type = double2; };
+// the storage type T of a leaf: its 16-byte vector V and the type C the sum
+// is taken in (float for bfloat16)
+template <typename T> struct Traits;
+template <> struct Traits<float> { using V = float4; using C = float; };
+template <> struct Traits<double> { using V = double2; using C = double; };
+template <> struct Traits<__nv_bfloat16> { using V = uint4; using C = float; };
 
 __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
 __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
 
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ double widen(double x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T> __device__ __forceinline__ T narrow(typename Traits<T>::C x);
+template <> __device__ __forceinline__ float narrow<float>(float x) { return x; }
+template <> __device__ __forceinline__ double narrow<double>(double x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);  // the one rounding of a bfloat16 sum
+}
+
 template <typename T, bool kInit>
-__device__ __forceinline__ void axpy_scalar(T* acc, const T* delta, T a) {
-  *acc = kInit ? mul_rn(a, *delta) : add_rn(*acc, mul_rn(a, *delta));
+__device__ __forceinline__ T axpy_value(T acc, T delta, typename Traits<T>::C a) {
+  const typename Traits<T>::C d = mul_rn(a, widen(delta));
+  return narrow<T>(kInit ? d : add_rn(widen(acc), d));
+}
+
+template <typename T, bool kInit>
+__device__ __forceinline__ void axpy_scalar(T* acc, const T* delta,
+                                            typename Traits<T>::C a) {
+  *acc = axpy_value<T, kInit>(kInit ? *delta : *acc, *delta, a);
 }
 
 template <typename T, bool kInit>
 __global__ void __launch_bounds__(kThreads)
 axpy_tree_kernel(const __grid_constant__ Table<T> table,
-                 const T* __restrict__ alpha, int chunks) {
-  using V = typename Vec16<T>::type;
+                 const typename Traits<T>::C* __restrict__ alpha, int chunks) {
+  using V = typename Traits<T>::V;
   constexpr int kWidth = 16 / sizeof(T);
   constexpr int kChunk = kChunkBytes / sizeof(T);
-  const T a = *alpha;
+  const typename Traits<T>::C a = *alpha;
   for (int c = blockIdx.x; c < chunks; c += gridDim.x) {
     // the leaf of chunk c: the last leaf whose first chunk is <= c
     int lo = 0, hi = table.leaves - 1;
@@ -119,7 +152,7 @@ axpy_tree_kernel(const __grid_constant__ Table<T> table,
           const T* ds = reinterpret_cast<const T*>(&d[j]);
 #pragma unroll
           for (int e = 0; e < kWidth; ++e) {
-            xs[e] = kInit ? mul_rn(a, ds[e]) : add_rn(xs[e], mul_rn(a, ds[e]));
+            xs[e] = axpy_value<T, kInit>(kInit ? ds[e] : xs[e], ds[e], a);
           }
           acc_v[k] = x[j];
         }
@@ -162,7 +195,7 @@ int launch(const long long* rows, long long leaves, long long chunks,
   if (err != cudaSuccess) return (int)err;
   const long long resident = (long long)sms * kBlocksPerSm;
   const int grid = (int)(chunks < resident ? chunks : resident);
-  const T* s = static_cast<const T*>(alpha);
+  const auto* s = static_cast<const typename Traits<T>::C*>(alpha);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (init) {
     axpy_tree_kernel<T, true><<<grid, kThreads, 0, st>>>(t, s, (int)chunks);
@@ -179,9 +212,10 @@ int launch(const long long* rows, long long leaves, long long chunks,
 extern "C" int axpy_tree_capacity() { return kCap; }
 extern "C" int axpy_tree_chunk_bytes() { return kChunkBytes; }
 
-// One launch over a table of float32 (float64) leaves on `stream`; alpha is
-// one value of the same type on the device.  Returns cudaGetLastError()
-// (cudaSuccess when there was nothing to launch).
+// One launch over a table of float32 (float64, bfloat16) leaves on `stream`;
+// alpha is one value of the same type on the device (float32 for bfloat16
+// leaves).  Returns cudaGetLastError() (cudaSuccess when there was nothing to
+// launch).
 extern "C" int axpy_accumulate_tree_f32(const void* rows, long long leaves,
                                         long long chunks, const void* alpha,
                                         long long init, void* stream) {
@@ -194,4 +228,11 @@ extern "C" int axpy_accumulate_tree_f64(const void* rows, long long leaves,
                                         long long init, void* stream) {
   return launch<double>(static_cast<const long long*>(rows), leaves, chunks,
                         alpha, init, stream);
+}
+
+extern "C" int axpy_accumulate_tree_bf16(const void* rows, long long leaves,
+                                         long long chunks, const void* alpha,
+                                         long long init, void* stream) {
+  return launch<__nv_bfloat16>(static_cast<const long long*>(rows), leaves, chunks,
+                               alpha, init, stream);
 }

@@ -25,6 +25,12 @@ biases 0, BatchNorm scale 1 and bias 0.  Weights are drawn from the
 generator, so two trunks built from one seed are equal; tests carry the
 JAX package's weights over through ``utils/interop.py``.
 
+``dtype`` (every trunk and block) is the JAX modules' compute dtype: the
+convs compute in it (``models/layers.py``), BatchNorm reduces in float32
+and returns in it; ``None`` computes in the parameters' dtype.  The trunk
+takes its input as it comes: the first conv casts it, as ``nn.Conv``
+does.
+
 ``load_pretrained_npz`` overlays converted ImageNet weights from a local
 ``.npz`` in the layout ``scripts/convert_torch_weights.py`` writes.
 """
@@ -40,6 +46,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from optwboundeigenval_tpu_torch.models.activations import relu
+from optwboundeigenval_tpu_torch.models.layers import Conv2d
 from optwboundeigenval_tpu_torch.models.norm import BatchNorm2d
 
 
@@ -61,8 +68,9 @@ def lecun_init(model: nn.Module, generator: Optional[torch.Generator] = None) ->
             m.bn3.weight.zero_()
 
 
-def _conv(cin, cout, k, stride=1, padding=0, bias=True):
-    return nn.Conv2d(cin, cout, k, stride=stride, padding=padding, bias=bias)
+def _conv(cin, cout, k, stride=1, padding=0, bias=True, dtype=None):
+    return Conv2d(cin, cout, k, stride=stride, padding=padding, bias=bias,
+                  compute_dtype=dtype)
 
 
 class AlexNetFeatures(nn.Module):
@@ -75,10 +83,10 @@ class AlexNetFeatures(nn.Module):
                (8, 384, 256, 3, 1, 1), (10, 256, 256, 3, 1, 1))
     _POOL_AFTER = (0, 3, 10)
 
-    def __init__(self):
+    def __init__(self, dtype: Optional[torch.dtype] = None):
         super().__init__()
         for idx, cin, cout, k, s, p in self._LAYERS:
-            self.add_module(str(idx), _conv(cin, cout, k, s, p))
+            self.add_module(str(idx), _conv(cin, cout, k, s, p, dtype=dtype))
         self.reset_parameters()
 
     def reset_parameters(self, generator=None):
@@ -102,7 +110,7 @@ class VGG16BNFeatures(nn.Module):
     ReLU; the conv of each triple at torchvision's Sequential index, its
     BatchNorm at the next."""
 
-    def __init__(self, cfg: Sequence = VGG16_CFG):
+    def __init__(self, cfg: Sequence = VGG16_CFG, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.cfg = tuple(cfg)
         self._plan = []  # (conv index, or None for a pool)
@@ -112,8 +120,8 @@ class VGG16BNFeatures(nn.Module):
                 self._plan.append(None)
                 idx += 1
             else:
-                self.add_module(str(idx), _conv(cin, v, 3, padding=1))
-                self.add_module(str(idx + 1), BatchNorm2d(v))
+                self.add_module(str(idx), _conv(cin, v, 3, padding=1, dtype=dtype))
+                self.add_module(str(idx + 1), BatchNorm2d(v, dtype=dtype))
                 self._plan.append(idx)
                 idx, cin = idx + 3, v
         self.out_channels = cin
@@ -136,17 +144,19 @@ class Bottleneck(nn.Module):
     """torchvision's ResNet bottleneck: 1x1, 3x3 (stride here, pad 1), 1x1
     to ``4 * width``, a 1x1 projection where the shape changes."""
 
-    def __init__(self, cin: int, width: int, stride: int = 1):
+    def __init__(self, cin: int, width: int, stride: int = 1,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.conv1 = _conv(cin, width, 1, bias=False)
-        self.bn1 = BatchNorm2d(width)
-        self.conv2 = _conv(width, width, 3, stride, 1, bias=False)
-        self.bn2 = BatchNorm2d(width)
-        self.conv3 = _conv(width, 4 * width, 1, bias=False)
-        self.bn3 = BatchNorm2d(4 * width)
+        self.conv1 = _conv(cin, width, 1, bias=False, dtype=dtype)
+        self.bn1 = BatchNorm2d(width, dtype=dtype)
+        self.conv2 = _conv(width, width, 3, stride, 1, bias=False, dtype=dtype)
+        self.bn2 = BatchNorm2d(width, dtype=dtype)
+        self.conv3 = _conv(width, 4 * width, 1, bias=False, dtype=dtype)
+        self.bn3 = BatchNorm2d(4 * width, dtype=dtype)
         if cin != 4 * width or stride != 1:
-            self.downsample = nn.ModuleList([_conv(cin, 4 * width, 1, stride, bias=False),
-                                             BatchNorm2d(4 * width)])
+            self.downsample = nn.ModuleList([
+                _conv(cin, 4 * width, 1, stride, bias=False, dtype=dtype),
+                BatchNorm2d(4 * width, dtype=dtype)])
         else:
             self.downsample = None
 
@@ -166,16 +176,18 @@ class ResNet50Features(nn.Module):
     ``stage_sizes`` bottlenecks per stage (``layer1`` ... ``layer4``),
     ``2048`` channels out for 4 stages."""
 
-    def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3)):
+    def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3),
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.stage_sizes = tuple(stage_sizes)
-        self.conv1 = _conv(3, 64, 7, 2, 3, bias=False)
-        self.bn1 = BatchNorm2d(64)
+        self.conv1 = _conv(3, 64, 7, 2, 3, bias=False, dtype=dtype)
+        self.bn1 = BatchNorm2d(64, dtype=dtype)
         cin = 64
         for i, n in enumerate(self.stage_sizes):
             blocks = []
             for b in range(n):
-                blocks.append(Bottleneck(cin, 64 * 2 ** i, 2 if (i > 0 and b == 0) else 1))
+                blocks.append(Bottleneck(cin, 64 * 2 ** i, 2 if (i > 0 and b == 0) else 1,
+                                         dtype))
                 cin = 4 * 64 * 2 ** i
             self.add_module(f"layer{i + 1}", nn.ModuleList(blocks))
         self.out_channels = cin
@@ -194,12 +206,14 @@ class ResNet50Features(nn.Module):
 
 
 class DenseLayer(nn.Module):
-    def __init__(self, cin: int, growth_rate: int, bn_size: int):
+    def __init__(self, cin: int, growth_rate: int, bn_size: int,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.norm1 = BatchNorm2d(cin)
-        self.conv1 = _conv(cin, bn_size * growth_rate, 1, bias=False)
-        self.norm2 = BatchNorm2d(bn_size * growth_rate)
-        self.conv2 = _conv(bn_size * growth_rate, growth_rate, 3, padding=1, bias=False)
+        self.norm1 = BatchNorm2d(cin, dtype=dtype)
+        self.conv1 = _conv(cin, bn_size * growth_rate, 1, bias=False, dtype=dtype)
+        self.norm2 = BatchNorm2d(bn_size * growth_rate, dtype=dtype)
+        self.conv2 = _conv(bn_size * growth_rate, growth_rate, 3, padding=1, bias=False,
+                           dtype=dtype)
 
     def forward(self, x, train=False, stats_out=None):
         y = self.conv1(relu(self.norm1(x, train, stats_out)))
@@ -208,10 +222,10 @@ class DenseLayer(nn.Module):
 
 
 class Transition(nn.Module):
-    def __init__(self, cin: int, cout: int):
+    def __init__(self, cin: int, cout: int, dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.norm = BatchNorm2d(cin)
-        self.conv = _conv(cin, cout, 1, bias=False)
+        self.norm = BatchNorm2d(cin, dtype=dtype)
+        self.conv = _conv(cin, cout, 1, bias=False, dtype=dtype)
 
     def forward(self, x, train=False, stats_out=None):
         return F.avg_pool2d(self.conv(relu(self.norm(x, train, stats_out))), 2)
@@ -223,23 +237,24 @@ class DenseNetFeatures(nn.Module):
     ``norm5`` and a ReLU."""
 
     def __init__(self, block_config: Sequence[int] = (6, 12, 24, 16),
-                 growth_rate: int = 32, num_init_features: int = 64, bn_size: int = 4):
+                 growth_rate: int = 32, num_init_features: int = 64, bn_size: int = 4,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.block_config = tuple(block_config)
-        self.conv0 = _conv(3, num_init_features, 7, 2, 3, bias=False)
-        self.norm0 = BatchNorm2d(num_init_features)
+        self.conv0 = _conv(3, num_init_features, 7, 2, 3, bias=False, dtype=dtype)
+        self.norm0 = BatchNorm2d(num_init_features, dtype=dtype)
         c = num_init_features
         for i, n in enumerate(self.block_config):
             block = nn.Module()
             for j in range(n):
                 block.add_module(f"denselayer{j + 1}", DenseLayer(c + j * growth_rate,
-                                                                  growth_rate, bn_size))
+                                                                  growth_rate, bn_size, dtype))
             self.add_module(f"denseblock{i + 1}", block)
             c += n * growth_rate
             if i < len(self.block_config) - 1:
-                self.add_module(f"transition{i + 1}", Transition(c, c // 2))
+                self.add_module(f"transition{i + 1}", Transition(c, c // 2, dtype))
                 c //= 2
-        self.norm5 = BatchNorm2d(c)
+        self.norm5 = BatchNorm2d(c, dtype=dtype)
         self.out_channels = c
         self.reset_parameters()
 
@@ -257,20 +272,20 @@ class DenseNetFeatures(nn.Module):
         return relu(self.norm5(x, train, stats_out))
 
 
-def densenet121_features():
-    return DenseNetFeatures((6, 12, 24, 16), 32, 64)  # 1,024 out
+def densenet121_features(dtype: Optional[torch.dtype] = None):
+    return DenseNetFeatures((6, 12, 24, 16), 32, 64, dtype=dtype)  # 1,024 out
 
 
-def densenet161_features():
-    return DenseNetFeatures((6, 12, 36, 24), 48, 96)  # 2,208 out
+def densenet161_features(dtype: Optional[torch.dtype] = None):
+    return DenseNetFeatures((6, 12, 36, 24), 48, 96, dtype=dtype)  # 2,208 out
 
 
-def densenet169_features():
-    return DenseNetFeatures((6, 12, 32, 32), 32, 64)  # 1,664 out
+def densenet169_features(dtype: Optional[torch.dtype] = None):
+    return DenseNetFeatures((6, 12, 32, 32), 32, 64, dtype=dtype)  # 1,664 out
 
 
-def densenet201_features():
-    return DenseNetFeatures((6, 12, 48, 32), 32, 64)  # 1,920 out
+def densenet201_features(dtype: Optional[torch.dtype] = None):
+    return DenseNetFeatures((6, 12, 48, 32), 32, 64, dtype=dtype)  # 1,920 out
 
 
 def load_pretrained_npz(model: nn.Module, params, model_state, path: str,

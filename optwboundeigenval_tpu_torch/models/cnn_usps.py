@@ -16,6 +16,15 @@ so weights, K-FAC factors and checkpoints cross unchanged.  The forward
 equals ``'lax'``'s, the derivatives do not: at a window of tied maxima
 ``amax`` (as the JAX package's reshape-max) shares the gradient evenly,
 where ``F.max_pool2d`` (as ``nn.max_pool``) gives it all to one element.
+
+``dtype`` is the JAX model's compute dtype (``None``, the default,
+computes in the parameters' dtype).  As in the JAX package, whose
+``GemmConv3x3`` makes its ``kernel`` and ``bias`` in the compute dtype
+(JAX cnn_usps.py:66-71), under ``'gemm'`` the three convs HOLD their
+parameters in ``dtype`` while the dense layers keep float32: at bfloat16
+the model's tree mixes bfloat16 and float32 leaves.  Under ``'lax'``
+every parameter keeps its dtype and the layers cast
+(``models/layers.py``).
 """
 
 from __future__ import annotations
@@ -27,6 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from optwboundeigenval_tpu_torch.models.activations import relu
+from optwboundeigenval_tpu_torch.models.layers import Conv2d, Linear, cast
 from optwboundeigenval_tpu_torch.models.mlp_forest import reset_torch_default
 
 
@@ -50,16 +60,20 @@ def reshape_max_pool2(x: torch.Tensor) -> torch.Tensor:
 
 
 class CNNUSPS(nn.Module):
-    def __init__(self, num_classes: int = 10, conv_impl: str = "lax"):
+    def __init__(self, num_classes: int = 10, conv_impl: str = "lax",
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         if conv_impl not in ("lax", "gemm"):
             raise ValueError(f"conv_impl must be 'lax' or 'gemm', got {conv_impl!r}")
         self.conv_impl = conv_impl
-        self.conv1 = nn.Conv2d(1, 8, 3, padding=1)
-        self.conv2 = nn.Conv2d(8, 16, 3, padding=1)
-        self.conv3 = nn.Conv2d(16, 32, 3, padding=1)
-        self.fc1 = nn.Linear(2 * 2 * 32, 64)
-        self.fc2 = nn.Linear(64, num_classes)
+        self.dtype = dtype
+        # the gemm convs' parameters in the compute dtype (JAX GemmConv3x3)
+        held = dtype if conv_impl == "gemm" else None
+        self.conv1 = Conv2d(1, 8, 3, padding=1, compute_dtype=dtype, dtype=held)
+        self.conv2 = Conv2d(8, 16, 3, padding=1, compute_dtype=dtype, dtype=held)
+        self.conv3 = Conv2d(16, 32, 3, padding=1, compute_dtype=dtype, dtype=held)
+        self.fc1 = Linear(2 * 2 * 32, 64, compute_dtype=dtype)
+        self.fc2 = Linear(64, num_classes, compute_dtype=dtype)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         reset_torch_default(self, generator)
@@ -67,10 +81,11 @@ class CNNUSPS(nn.Module):
     def forward(self, x: torch.Tensor, train: bool = False,
                 stats_out: Optional[dict] = None) -> torch.Tensor:
         x = x.reshape(-1, 16, 16, 1).permute(0, 3, 1, 2)
-        x = x.to(self.conv1.weight.dtype).contiguous()
+        x = x.to(self.dtype or self.fc1.weight.dtype).contiguous()
         for conv in (self.conv1, self.conv2, self.conv3):
             if self.conv_impl == "gemm":
-                x = reshape_max_pool2(relu(gemm_conv3x3_same(x, conv.weight, conv.bias)))
+                x = reshape_max_pool2(relu(gemm_conv3x3_same(
+                    *cast(self.dtype, x, conv.weight, conv.bias))))
             else:
                 x = F.max_pool2d(relu(conv(x)), 2)
         x = relu(self.fc1(x.flatten(1)))  # (B, 32*2*2) in CHW order

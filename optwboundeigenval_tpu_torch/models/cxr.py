@@ -12,8 +12,10 @@
 The global max is ``torch.amax``, which shares the gradient evenly
 between tied maxima as ``jnp.max`` does (``max(dim)`` would route it to
 one index).  Inputs are NHWC, as the JAX batch is (224 x 224 x 3 for
-the published recipe), permuted to NCHW once and cast to the
-parameters' dtype.
+the published recipe), permuted to NCHW once and cast to the compute
+``dtype`` (the JAX models' ``dtype``: every conv, dense layer and
+BatchNorm of trunk and head computes in it, ``models/layers.py``), or to
+the parameters' dtype under ``dtype=None``, the default.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from torch import nn
 
 from optwboundeigenval_tpu_torch.models import backbones
 from optwboundeigenval_tpu_torch.models.activations import relu
+from optwboundeigenval_tpu_torch.models.layers import Conv2d, Linear
 from optwboundeigenval_tpu_torch.models.norm import BatchNorm2d
 
 BACKBONES = {
@@ -38,19 +41,22 @@ BACKBONES = {
 }
 
 
-def _nchw(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
-    return x.permute(0, 3, 1, 2).to(like.dtype).contiguous()
+def _nchw(x: torch.Tensor, classifier: Linear) -> torch.Tensor:
+    """NHWC to NCHW in the classifier's compute dtype, else its weight's."""
+    return x.permute(0, 3, 1, 2).to(classifier.compute_dtype or classifier.weight.dtype
+                                    ).contiguous()
 
 
 class TransitHead(nn.Module):
     """transit conv + BN + ReLU + max pool (2, stride 2, pad 1), global max,
     then the ``1024 -> outnum`` classifier (dcnn.py:206-217)."""
 
-    def __init__(self, in_channels: int, outnum: int = 14):
+    def __init__(self, in_channels: int, outnum: int = 14,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.transit_conv = nn.Conv2d(in_channels, 1024, 3, padding=1)
-        self.transit_bn = BatchNorm2d(1024)
-        self.classifier = nn.Linear(1024, outnum)
+        self.transit_conv = Conv2d(in_channels, 1024, 3, padding=1, compute_dtype=dtype)
+        self.transit_bn = BatchNorm2d(1024, dtype=dtype)
+        self.classifier = Linear(1024, outnum, compute_dtype=dtype)
 
     def forward(self, x, train=False, stats_out=None):
         x = relu(self.transit_bn(self.transit_conv(x), train, stats_out))
@@ -62,18 +68,19 @@ class CXRModel(nn.Module):
     """``backbone`` features -> :class:`TransitHead`; logits out."""
 
     def __init__(self, backbone: str = "densenet121", outnum: int = 14,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.backbone = backbone
-        self.features = BACKBONES[backbone]()
-        self.head = TransitHead(self.features.out_channels, outnum)
+        self.features = BACKBONES[backbone](dtype=dtype)
+        self.head = TransitHead(self.features.out_channels, outnum, dtype)
         self.reset_parameters(generator)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         backbones.lecun_init(self, generator)
 
     def forward(self, x, train=False, stats_out=None):
-        x = _nchw(x, self.head.classifier.weight)
+        x = _nchw(x, self.head.classifier)
         return self.head(self.features(x, train, stats_out), train, stats_out)
 
 
@@ -82,15 +89,17 @@ class DenseNet121Sigmoid(nn.Module):
     evaluate without ``'sigmoid'`` in ``test_func``."""
 
     def __init__(self, class_count: int = 14,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.features = backbones.densenet121_features()
-        self.classifier = nn.Linear(self.features.out_channels, class_count)
+        self.features = backbones.densenet121_features(dtype)
+        self.classifier = Linear(self.features.out_channels, class_count,
+                                 compute_dtype=dtype)
         self.reset_parameters(generator)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         backbones.lecun_init(self, generator)
 
     def forward(self, x, train=False, stats_out=None):
-        x = self.features(_nchw(x, self.classifier.weight), train, stats_out)
+        x = self.features(_nchw(x, self.classifier), train, stats_out)
         return torch.sigmoid(self.classifier(x.mean(dim=(2, 3))))

@@ -16,6 +16,13 @@ The public input is NHWC ``(B, 32, 32, 3)``, as in the JAX batch; it is
 permuted to NCHW once.  ``forward(x, train, stats_out)`` takes the mode
 explicitly (``Task`` calls it through ``torch.func.functional_call``);
 BatchNorm is ``models/norm.BatchNorm2d``.
+
+``dtype`` is the JAX model's compute dtype: the input is cast to it, the
+convs and the classifier compute in it (``models/layers.py``) and
+BatchNorm reduces in float32 and returns in it, over parameters that keep
+their own dtype (``DenseNet3(dtype=torch.bfloat16)`` computes in bfloat16
+over float32 parameters and statistics).  ``None``, the default, computes
+in the parameters' dtype (flax's default is float32).
 """
 
 from __future__ import annotations
@@ -29,18 +36,20 @@ from torch import nn
 
 from optwboundeigenval_tpu_torch.models.activations import relu
 from optwboundeigenval_tpu_torch.models.dropout import Dropout, name_sites
+from optwboundeigenval_tpu_torch.models.layers import Conv2d, Linear
 from optwboundeigenval_tpu_torch.models.norm import BatchNorm2d
 
 
 class BottleneckBlock(nn.Module):
-    def __init__(self, in_planes: int, out_planes: int, drop_rate: float = 0.0):
+    def __init__(self, in_planes: int, out_planes: int, drop_rate: float = 0.0,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         inter = out_planes * 4
-        self.bn1 = BatchNorm2d(in_planes)
-        self.conv1 = nn.Conv2d(in_planes, inter, 1, bias=False)
+        self.bn1 = BatchNorm2d(in_planes, dtype=dtype)
+        self.conv1 = Conv2d(in_planes, inter, 1, bias=False, compute_dtype=dtype)
         self.drop1 = Dropout(drop_rate)
-        self.bn2 = BatchNorm2d(inter)
-        self.conv2 = nn.Conv2d(inter, out_planes, 3, padding=1, bias=False)
+        self.bn2 = BatchNorm2d(inter, dtype=dtype)
+        self.conv2 = Conv2d(inter, out_planes, 3, padding=1, bias=False, compute_dtype=dtype)
         self.drop2 = Dropout(drop_rate)
 
     def forward(self, x, train=False, stats_out=None):
@@ -52,10 +61,12 @@ class BottleneckBlock(nn.Module):
 class BasicBlock(nn.Module):
     """BN, ReLU, 3x3 conv (JAX densenet.py:62-77)."""
 
-    def __init__(self, in_planes: int, out_planes: int, drop_rate: float = 0.0):
+    def __init__(self, in_planes: int, out_planes: int, drop_rate: float = 0.0,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.bn1 = BatchNorm2d(in_planes)
-        self.conv1 = nn.Conv2d(in_planes, out_planes, 3, padding=1, bias=False)
+        self.bn1 = BatchNorm2d(in_planes, dtype=dtype)
+        self.conv1 = Conv2d(in_planes, out_planes, 3, padding=1, bias=False,
+                            compute_dtype=dtype)
         self.drop = Dropout(drop_rate)
 
     def forward(self, x, train=False, stats_out=None):
@@ -64,10 +75,11 @@ class BasicBlock(nn.Module):
 
 
 class TransitionBlock(nn.Module):
-    def __init__(self, in_planes: int, out_planes: int, drop_rate: float = 0.0):
+    def __init__(self, in_planes: int, out_planes: int, drop_rate: float = 0.0,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.bn1 = BatchNorm2d(in_planes)
-        self.conv1 = nn.Conv2d(in_planes, out_planes, 1, bias=False)
+        self.bn1 = BatchNorm2d(in_planes, dtype=dtype)
+        self.conv1 = Conv2d(in_planes, out_planes, 1, bias=False, compute_dtype=dtype)
         self.drop = Dropout(drop_rate)
 
     def forward(self, x, train=False, stats_out=None):
@@ -77,10 +89,11 @@ class TransitionBlock(nn.Module):
 
 class DenseBlock(nn.Module):
     def __init__(self, nb_layers: int, in_planes: int, growth_rate: int,
-                 block=BottleneckBlock, drop_rate: float = 0.0):
+                 block=BottleneckBlock, drop_rate: float = 0.0,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.layer = nn.ModuleList(
-            block(in_planes + i * growth_rate, growth_rate, drop_rate)
+            block(in_planes + i * growth_rate, growth_rate, drop_rate, dtype)
             for i in range(nb_layers)
         )
 
@@ -99,25 +112,29 @@ class DenseNet3(nn.Module):
     def __init__(self, depth: int = 40, num_classes: int = 10,
                  growth_rate: int = 12, reduction: float = 0.5,
                  bottleneck: bool = True, drop_rate: float = 0.0,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.bottleneck = bottleneck
+        self.dtype = dtype
         in_planes = 2 * growth_rate
         n = (depth - 4) / 3
         if bottleneck:
             n = n / 2
         n = int(n)
         block = BottleneckBlock if bottleneck else BasicBlock
-        self.conv1 = nn.Conv2d(3, in_planes, 3, padding=1, bias=False)
+        self.conv1 = Conv2d(3, in_planes, 3, padding=1, bias=False, compute_dtype=dtype)
         for b in range(1, 4):
-            setattr(self, f"block{b}", DenseBlock(n, in_planes, growth_rate, block, drop_rate))
+            setattr(self, f"block{b}", DenseBlock(n, in_planes, growth_rate, block, drop_rate,
+                                                  dtype))
             in_planes = int(in_planes + n * growth_rate)
             if b < 3:
                 out_planes = int(math.floor(in_planes * reduction))
-                setattr(self, f"trans{b}", TransitionBlock(in_planes, out_planes, drop_rate))
+                setattr(self, f"trans{b}", TransitionBlock(in_planes, out_planes, drop_rate,
+                                                           dtype))
                 in_planes = out_planes
-        self.bn1 = BatchNorm2d(in_planes)
-        self.fc = nn.Linear(in_planes, num_classes)
+        self.bn1 = BatchNorm2d(in_planes, dtype=dtype)
+        self.fc = Linear(in_planes, num_classes, compute_dtype=dtype)
         name_sites(self)
         self.reset_parameters(generator)
 
@@ -139,9 +156,9 @@ class DenseNet3(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 stats_out: Optional[dict] = None) -> torch.Tensor:
-        # NHWC -> NCHW once; compute in the parameters' dtype, as the JAX
-        # model casts its input to its compute dtype
-        x = x.permute(0, 3, 1, 2).to(self.conv1.weight.dtype).contiguous()
+        # NHWC -> NCHW once, in the compute dtype (else the parameters'), as
+        # the JAX model casts its input to its compute dtype
+        x = x.permute(0, 3, 1, 2).to(self.dtype or self.conv1.weight.dtype).contiguous()
         out = self.conv1(x)
         out = self.trans1(self.block1(out, train, stats_out), train, stats_out)
         out = self.trans2(self.block2(out, train, stats_out), train, stats_out)

@@ -23,6 +23,15 @@ flipped in both spatial axes; ``utils/interop.py`` does the flip.  The
 DC discriminator flattens its last map in HWC order, as the JAX model
 does, so its dense kernel needs no permutation.
 
+``dtype`` (each network) is the JAX modules' compute dtype: the dense,
+conv, transposed-conv and embedding layers compute in it
+(``models/layers.py``) and ``BatchNorm`` reduces in float32, keeps its
+running statistics in float32 and returns in it; ``None``, the default,
+computes in the parameters' dtype.  Inputs are cast to the parameters'
+dtype, not the compute dtype: the JAX networks concatenate (or multiply)
+a float32 input with a bfloat16 embedding, which promotes to float32,
+and the next layer casts.
+
 ``reset_parameters(generator)`` draws flax's initialisation from the
 generator: dense, conv and transposed-conv kernels normal with variance
 ``1 / fan_in`` (untruncated), embeddings normal with variance ``1 /
@@ -38,6 +47,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from optwboundeigenval_tpu_torch.models.layers import Conv2d, ConvTranspose2d, Embedding, Linear
+
 DROPOUT = 0.4  # the MLP discriminator's rate (gan.py Discriminator)
 
 
@@ -50,11 +61,14 @@ class BatchNorm(nn.Module):
     """BatchNorm over dim 1 of ``(B, C)`` or ``(B, C, H, W)``, as explicit
     ops: batch mean and two-pass biased variance in train mode, where the
     running statistics also update in place (``(1 - m) * running + m *
-    batch``, unbiased variance); the running statistics in eval mode."""
+    batch``, unbiased variance); the running statistics in eval mode.  A
+    compute ``dtype``: reduced and normalised in at least float32, the
+    output cast to it (``models/norm.py``)."""
 
-    def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.1):
+    def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.1,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.eps, self.momentum = eps, momentum
+        self.eps, self.momentum, self.dtype = eps, momentum, dtype
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -68,6 +82,8 @@ class BatchNorm(nn.Module):
             self.running_var.fill_(1.0)
 
     def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
+        if self.dtype is not None:
+            x = x.to(torch.promote_types(self.dtype, torch.float32))
         shape = (1, -1) + (1,) * (x.dim() - 2)
         if train:
             dims = (0,) + tuple(range(2, x.dim()))
@@ -82,7 +98,8 @@ class BatchNorm(nn.Module):
         else:
             y, var = x - self.running_mean.reshape(shape), self.running_var
         mul = torch.rsqrt(var + self.eps) * self.weight
-        return y * mul.reshape(shape) + self.bias.reshape(shape)
+        out = y * mul.reshape(shape) + self.bias.reshape(shape)
+        return out if self.dtype is None else out.to(self.dtype)
 
 
 @torch.no_grad()
@@ -114,15 +131,16 @@ class MLPGenerator(nn.Module):
 
     def __init__(self, n_classes: int = 10, latent_dim: int = 100,
                  img_shape: Tuple[int, int, int] = (16, 16, 1), n: int = 128,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.n_classes, self.latent_dim, self.img_shape = n_classes, latent_dim, tuple(img_shape)
         widths = (n, 2 * n, 4 * n, 8 * n)
-        self.label_emb = nn.Embedding(n_classes, n_classes)
+        self.label_emb = Embedding(n_classes, n_classes, compute_dtype=dtype)
         ins = (latent_dim + n_classes,) + widths[:-1]
-        self.fc = nn.ModuleList(nn.Linear(i, o) for i, o in zip(ins, widths))
-        self.bn = nn.ModuleList(BatchNorm(w, eps=0.8) for w in widths[1:])
-        self.out = nn.Linear(widths[-1], math.prod(self.img_shape))
+        self.fc = nn.ModuleList(Linear(i, o, compute_dtype=dtype) for i, o in zip(ins, widths))
+        self.bn = nn.ModuleList(BatchNorm(w, eps=0.8, dtype=dtype) for w in widths[1:])
+        self.out = Linear(widths[-1], math.prod(self.img_shape), compute_dtype=dtype)
         self.reset_parameters(generator)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
@@ -145,13 +163,14 @@ class MLPDiscriminator(nn.Module):
     layers' keep masks, each (B, 4n) boolean."""
 
     def __init__(self, n_classes: int = 10, img_dim: int = 256, n: int = 128,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.label_emb = nn.Embedding(n_classes, n_classes)
-        self.fc1 = nn.Linear(img_dim + n_classes, 4 * n)
-        self.fc2 = nn.Linear(4 * n, 4 * n)
-        self.fc3 = nn.Linear(4 * n, 4 * n)
-        self.fc4 = nn.Linear(4 * n, 1)
+        self.label_emb = Embedding(n_classes, n_classes, compute_dtype=dtype)
+        self.fc1 = Linear(img_dim + n_classes, 4 * n, compute_dtype=dtype)
+        self.fc2 = Linear(4 * n, 4 * n, compute_dtype=dtype)
+        self.fc3 = Linear(4 * n, 4 * n, compute_dtype=dtype)
+        self.fc4 = Linear(4 * n, 1, compute_dtype=dtype)
         self.reset_parameters(generator)
 
     @property
@@ -182,14 +201,16 @@ class DCGenerator(nn.Module):
     Tanh; (B, 32, 32, 1) out."""
 
     def __init__(self, n_classes: int = 10, latent_dim: int = 100, feat: int = 64,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.latent_dim = latent_dim
-        self.label_emb = nn.Embedding(n_classes, latent_dim)
+        self.label_emb = Embedding(n_classes, latent_dim, compute_dtype=dtype)
         plan = ((latent_dim, 4 * feat, 4), (4 * feat, 2 * feat, 2), (2 * feat, feat, 2))
-        self.deconv = nn.ModuleList(nn.ConvTranspose2d(i, o, k, stride=k) for i, o, k in plan)
-        self.bn = nn.ModuleList(BatchNorm(o) for _, o, _ in plan)
-        self.out = nn.ConvTranspose2d(feat, 1, 2, stride=2)
+        self.deconv = nn.ModuleList(ConvTranspose2d(i, o, k, stride=k, compute_dtype=dtype)
+                                    for i, o, k in plan)
+        self.bn = nn.ModuleList(BatchNorm(o, dtype=dtype) for _, o, _ in plan)
+        self.out = ConvTranspose2d(feat, 1, 2, stride=2, compute_dtype=dtype)
         self.reset_parameters(generator)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
@@ -211,14 +232,15 @@ class DCDiscriminator(nn.Module):
     dropout_shapes: Sequence[Tuple[int]] = ()
 
     def __init__(self, n_classes: int = 10, feat: int = 64, img_size: int = 32,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.img_size = img_size
-        self.label_emb = nn.Embedding(n_classes, img_size * img_size)
+        self.label_emb = Embedding(n_classes, img_size * img_size, compute_dtype=dtype)
         chans = (2, feat, 2 * feat, 4 * feat)
-        self.conv = nn.ModuleList(nn.Conv2d(i, o, 4, stride=2, padding=1)
+        self.conv = nn.ModuleList(Conv2d(i, o, 4, stride=2, padding=1, compute_dtype=dtype)
                                   for i, o in zip(chans[:-1], chans[1:]))
-        self.fc = nn.Linear(4 * feat * (img_size // 8) ** 2, 1)
+        self.fc = Linear(4 * feat * (img_size // 8) ** 2, 1, compute_dtype=dtype)
         self.reset_parameters(generator)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):

@@ -3,7 +3,9 @@
 Reference ``Net`` (forest_data.py:75-89): 54 -> 20 -> 20 -> 7 with ``fc2``
 applied twice.  The second call is the same ``nn.Linear``, so its
 gradient sums over both uses, as the reference's weight tying does.  The
-model outputs logits; the loss applies the softmax.
+model outputs logits; the loss applies the softmax.  ``dtype`` is the
+JAX model's compute dtype (``models/layers.py``); ``None``, the default,
+computes in the parameters' dtype.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import torch
 from torch import nn
 
 from optwboundeigenval_tpu_torch.models.activations import relu
+from optwboundeigenval_tpu_torch.models.layers import Linear
 
 
 @torch.no_grad()
@@ -33,18 +36,19 @@ def reset_torch_default(module: nn.Module,
 
 class ForestNet(nn.Module):
     def __init__(self, hidden: int = 20, num_classes: int = 7,
-                 in_features: int = 54):
+                 in_features: int = 54, dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.fc1 = nn.Linear(in_features, hidden)
-        self.fc2 = nn.Linear(hidden, hidden)
-        self.fc3 = nn.Linear(hidden, num_classes)
+        self.dtype = dtype
+        self.fc1 = Linear(in_features, hidden, compute_dtype=dtype)
+        self.fc2 = Linear(hidden, hidden, compute_dtype=dtype)
+        self.fc3 = Linear(hidden, num_classes, compute_dtype=dtype)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         reset_torch_default(self, generator)
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 stats_out: Optional[dict] = None) -> torch.Tensor:
-        x = x.to(self.fc1.weight.dtype)
+        x = x.to(self.dtype or self.fc1.weight.dtype)
         x = relu(self.fc1(x))
         x = relu(self.fc2(x))
         x = relu(self.fc2(x))  # fc2 applied twice: the reference's tying

@@ -30,6 +30,15 @@ sharded batch axis is: the per-channel sums and the count go through an
 all-reduce over the ``data`` group (each row once) that autograd
 differentiates to every order, the mean first
 and then the squared deviations from it (two passes still).
+
+A compute ``dtype`` (flax's ``dtype`` under the JAX package's
+``force_float32_reductions``): the input is taken up to at least float32,
+the statistics are reduced and the input normalised there against the
+float32 scale and bias, and the output is cast to ``dtype``, in train and
+eval mode alike (flax ``normalization._compute_stats`` and
+``_normalize``); ``stats_out`` and the running buffers stay float32.
+``dtype=None`` computes in the input's dtype, which the port's models make
+the parameters'.
 """
 
 from __future__ import annotations
@@ -46,10 +55,11 @@ class BatchNorm2d(nn.Module):
     """BatchNorm over NCHW feature maps (per-channel statistics)."""
 
     def __init__(self, num_features: int, eps: float = 1e-5,
-                 momentum: float = 0.1):
+                 momentum: float = 0.1, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.eps = eps
         self.momentum = momentum
+        self.dtype = dtype
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -65,6 +75,8 @@ class BatchNorm2d(nn.Module):
     def forward(self, x: torch.Tensor, train: bool = False,
                 stats_out: Optional[Dict[nn.Module, tuple]] = None
                 ) -> torch.Tensor:
+        if self.dtype is not None:
+            x = x.to(torch.promote_types(self.dtype, torch.float32))
         if train:
             dims = (0, 2, 3)
             n = x.numel() // x.shape[1]
@@ -83,4 +95,5 @@ class BatchNorm2d(nn.Module):
             var = self.running_var
             y = x - self.running_mean[None, :, None, None]
         mul = torch.rsqrt(var + self.eps) * self.weight
-        return y * mul[None, :, None, None] + self.bias[None, :, None, None]
+        out = y * mul[None, :, None, None] + self.bias[None, :, None, None]
+        return out if self.dtype is None else out.to(self.dtype)

@@ -11,7 +11,10 @@ An image input is NHWC, as the JAX batch is, permuted to NCHW once.  The train
 mode's standard-normal ``noise`` comes from an explicit ``generator`` on
 the parameters' device, or is given (``noise=``), which is how the tests
 inject the JAX package's draw.  Like the reference, no config uses it;
-``train/legacy.train2_epoch`` trains it.
+``train/legacy.train2_epoch`` trains it.  ``dtype`` is the JAX model's
+compute dtype of the four dense layers (``None``: the parameters'); the
+encoder has its own, and the noise is drawn in ``std``'s dtype, as
+``jax.random.normal(rng, std.shape, std.dtype)`` draws it.
 """
 
 from __future__ import annotations
@@ -22,20 +25,22 @@ import torch
 from torch import nn
 
 from optwboundeigenval_tpu_torch.models.activations import relu
+from optwboundeigenval_tpu_torch.models.layers import Linear
 from optwboundeigenval_tpu_torch.models.mlp_forest import reset_torch_default
 from optwboundeigenval_tpu_torch.train.task import weighted_bce_with_logits
 
 
 class VAE(nn.Module):
     def __init__(self, encoder: nn.Module, znum: int = 128, hnum: int = 256,
-                 outnum: int = 14, in_features: Optional[int] = None):
+                 outnum: int = 14, in_features: Optional[int] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.encoder = encoder
         in_features = in_features or encoder.out_channels
-        self.mu_fc = nn.Linear(in_features, znum)
-        self.logv_fc = nn.Linear(in_features, znum)
-        self.de1 = nn.Linear(znum, hnum)
-        self.de2 = nn.Linear(hnum, outnum)
+        self.mu_fc = Linear(in_features, znum, compute_dtype=dtype)
+        self.logv_fc = Linear(in_features, znum, compute_dtype=dtype)
+        self.de1 = Linear(znum, hnum, compute_dtype=dtype)
+        self.de2 = Linear(hnum, outnum, compute_dtype=dtype)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         self.encoder.reset_parameters(generator)

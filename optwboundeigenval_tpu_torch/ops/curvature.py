@@ -181,16 +181,23 @@ def _micro_batches(batch, num_micro: int):
 
 
 def _flat_like(tree: Tree) -> Tree:
-    """Uninitialised leaves shaped like ``tree``'s, views into one buffer
-    at offsets padded to 4 values, so each leaf is 16-byte aligned."""
-    sizes = [t.numel() for t in tree.values()]
-    offsets = [0]
-    for n in sizes:
-        offsets.append(offsets[-1] + -(-n // 4) * 4)
-    first = next(iter(tree.values()))
-    buf = torch.empty(offsets[-1], dtype=first.dtype, device=first.device)
-    return {k: buf[o:o + n].view(t.shape)
-            for (k, t), o, n in zip(tree.items(), offsets, sizes)}
+    """Uninitialised leaves shaped and typed like ``tree``'s: views into one
+    buffer a dtype (a tree at bfloat16 compute may mix bfloat16 and
+    float32 leaves), at offsets padded to 4 values (8 in bfloat16), so each
+    leaf is 16-byte aligned."""
+    groups: Dict[torch.dtype, list] = {}
+    for k, t in tree.items():
+        groups.setdefault(t.dtype, []).append(k)
+    out = {}
+    for dtype, keys in groups.items():
+        pad = max(4, 16 // torch.empty((), dtype=dtype).element_size())
+        offsets = [0]
+        for k in keys:
+            offsets.append(offsets[-1] + -(-tree[k].numel() // pad) * pad)
+        buf = torch.empty(offsets[-1], dtype=dtype, device=tree[keys[0]].device)
+        for k, o in zip(keys, offsets):
+            out[k] = buf[o:o + tree[k].numel()].view(tree[k].shape)
+    return {k: out[k] for k in tree}
 
 
 def _accumulate(terms) -> Tree:

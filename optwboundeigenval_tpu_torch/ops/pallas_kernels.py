@@ -22,6 +22,16 @@ tensor or a list of leaves, in one launch.
   ``ceil(leaves / TABLE_CAPACITY)`` launches.  It works in place (the TPU
   kernel wrote a fresh output) and reads ``alpha`` from device memory,
   so the micro-batch weight never forces a host sync.
+* Dtypes: float32 and float64 (the TPU kernel's), and bfloat16, which the
+  TPU kernel refuses: the gemm CNNUSPS at bfloat16 compute holds its conv
+  parameters in bfloat16 (as the JAX model does), so its trees mix
+  bfloat16 and float32 leaves.  The wrapper groups the leaves by dtype and
+  launches once per group; a bfloat16 leaf is summed in float32 against a
+  float32 ``alpha`` and rounded once to bfloat16 (round to nearest even),
+  ``fl_bf16(fl32(acc + fl32(alpha * delta)))``: the JAX trainer's ``a +
+  scale * d`` on such a leaf, float32 by promotion, cast back to the
+  leaf's dtype (the JAX trainer's micro-batched scan refuses the change of
+  dtype; the port keeps the leaf's).
 
 The wrapper takes the plain version only for tensors on the CPU; for
 CUDA tensors it launches the kernel or raises.  Nothing differentiates
@@ -46,7 +56,11 @@ _SOURCE = "axpy_accumulate"
 TABLE_CAPACITY = 1024
 CHUNK_BYTES = 8192
 _ENTRIES = {torch.float32: "axpy_accumulate_tree_f32",
-            torch.float64: "axpy_accumulate_tree_f64"}
+            torch.float64: "axpy_accumulate_tree_f64",
+            torch.bfloat16: "axpy_accumulate_tree_bf16"}
+# the dtype each entry sums in and reads alpha in
+_SUM_DTYPE = {torch.float32: torch.float32, torch.float64: torch.float64,
+              torch.bfloat16: torch.float32}
 
 Leaves = Union[torch.Tensor, Sequence[torch.Tensor]]
 _T = torch.Tensor
@@ -59,10 +73,15 @@ def axpy_accumulate_plain(acc: Leaves, delta: Leaves, alpha: torch.Tensor,
                           *, init: bool = False) -> Leaves:
     """Plain PyTorch version: ``acc <- fl(acc + fl(alpha * delta))`` per
     leaf, the rounding of the kernel and of the JAX accumulate
-    ``a + scale * d``; under ``init``, ``acc <- fl(alpha * delta)``."""
+    ``a + scale * d``; under ``init``, ``acc <- fl(alpha * delta)``.  A
+    bfloat16 leaf is summed in float32 and rounded once on the store,
+    ``(acc.float() + alpha * delta.float()).to(torch.bfloat16)``."""
     single = isinstance(acc, torch.Tensor)
     for a, d in zip(*((acc,), (delta,)) if single else (acc, delta)):
-        if init:
+        if a.dtype == torch.bfloat16:
+            t = alpha.float() * d.float()
+            a.copy_(t if init else a.float() + t)
+        elif init:
             torch.mul(d, alpha, out=a)
         else:
             a.add_(d * alpha)
@@ -94,8 +113,10 @@ def _check(accs: List[_T], deltas: List[_T], alpha: torch.Tensor):
     if len(devices | {alpha.device}) > 1:
         raise ValueError(f"device mismatch: leaves on {sorted(map(str, devices))}, "
                          f"alpha on {alpha.device}")
-    if len(set(map(_dtype, accs + deltas))) > 1:
-        raise TypeError("acc and delta leaves must share one dtype")
+    if list(map(_dtype, accs)) != list(map(_dtype, deltas)):
+        i = next(i for i, (a, d) in enumerate(zip(accs, deltas)) if a.dtype != d.dtype)
+        raise TypeError(f"dtype mismatch at leaf {i}: acc {accs[i].dtype} "
+                        f"vs delta {deltas[i].dtype}")
 
 
 def pack_tables(acc_ptrs: Sequence[int], delta_ptrs: Sequence[int],
@@ -148,23 +169,39 @@ def _kernels():
     return fns
 
 
+def dtype_groups(accs: List[_T], deltas: List[_T]) -> List[Tuple[List[_T], List[_T]]]:
+    """The leaves grouped by dtype, in order of first appearance: one
+    ``(accs, deltas)`` pair a dtype, each launched on its own."""
+    if len(set(map(_dtype, accs))) == 1:
+        return [(accs, deltas)]
+    groups = {}
+    for a, d in zip(accs, deltas):
+        ga, gd = groups.setdefault(a.dtype, ([], []))
+        ga.append(a)
+        gd.append(d)
+    return list(groups.values())
+
+
 def _launch(accs: List[_T], deltas: List[_T], alpha: torch.Tensor, init: bool):
-    dtype = accs[0].dtype
-    if dtype not in _ENTRIES:
-        raise TypeError(f"axpy_accumulate takes float32 or float64 on the card, got {dtype}")
+    groups = dtype_groups(accs, deltas)
+    bad = [g[0][0].dtype for g in groups if g[0][0].dtype not in _ENTRIES]
+    if bad:
+        raise TypeError("axpy_accumulate takes float32, float64 or bfloat16 on the card, "
+                        f"got {bad}")
     if not all(map(_T.is_contiguous, accs + deltas)):
         raise ValueError("acc and delta leaves must be contiguous")
-    if alpha.dtype != dtype:
-        alpha = alpha.to(dtype)  # on the device: no host sync
-    fn = _kernels()[dtype]
     stream = torch.cuda.current_stream(accs[0].device).cuda_stream
-    tables = pack_tables(list(map(_T.data_ptr, accs)), list(map(_T.data_ptr, deltas)),
-                         list(map(_T.numel, accs)), accs[0].element_size())
-    for rows, chunks in tables:
-        err = fn(rows.ctypes.data, len(rows), chunks, alpha.data_ptr(), int(init), stream)
-        if err != 0:
-            raise RuntimeError(f"axpy_accumulate launch failed: CUDA error {err}")
-        axpy_accumulate.launches += 1
+    for ga, gd in groups:
+        dtype = ga[0].dtype
+        a = alpha if alpha.dtype == _SUM_DTYPE[dtype] else alpha.to(_SUM_DTYPE[dtype])
+        fn = _kernels()[dtype]
+        tables = pack_tables(list(map(_T.data_ptr, ga)), list(map(_T.data_ptr, gd)),
+                             list(map(_T.numel, ga)), ga[0].element_size())
+        for rows, chunks in tables:
+            err = fn(rows.ctypes.data, len(rows), chunks, a.data_ptr(), int(init), stream)
+            if err != 0:
+                raise RuntimeError(f"axpy_accumulate launch failed: CUDA error {err}")
+            axpy_accumulate.launches += 1
 
 
 def axpy_accumulate(acc: Leaves, delta: Leaves, alpha: torch.Tensor,
@@ -173,10 +210,11 @@ def axpy_accumulate(acc: Leaves, delta: Leaves, alpha: torch.Tensor,
     sequences of same-shaped leaves; returns ``acc``.  Under ``init`` it
     writes ``acc = alpha * delta`` and never reads ``acc``.
 
-    ``alpha`` is a 0-d tensor on the same device.  On the CPU this is the
-    plain version (any float dtype); on a CUDA device it launches the
-    kernel (float32 or float64, contiguous leaves), once per
-    ``TABLE_CAPACITY`` non-empty leaves, or raises."""
+    ``alpha`` is a 0-d tensor on the same device; each leaf of ``acc``
+    has its ``delta``'s dtype.  On the CPU this is the plain version (any
+    float dtype); on a CUDA device it launches the kernel (float32,
+    float64 or bfloat16, contiguous leaves), once per dtype of the tree
+    and ``TABLE_CAPACITY`` non-empty leaves of it, or raises."""
     accs, deltas = _leaves(acc, delta)
     _check(accs, deltas, alpha)
     if not accs:

@@ -34,6 +34,7 @@ from optwboundeigenval_tpu_torch.analysis.plots import pyplot
 from optwboundeigenval_tpu_torch.ops import curvature
 from optwboundeigenval_tpu_torch.train import checkpoints
 from optwboundeigenval_tpu_torch.train.trainer import CKPT_BEST, SpectralTrainer, _as_loader
+from optwboundeigenval_tpu_torch.utils.precision import host
 
 
 def bn_update(task, params, model_state, loader, put_batch):
@@ -124,7 +125,7 @@ class AsymmetricValleyTrainer(SpectralTrainer):
         for data in loader:
             loss, out = self.task.eval_loss(params, model_state, self.put_batch(data))
             nreal = int(np.sum(np.asarray(data["w"]) > 0))
-            pred = np.argmax(out.cpu().numpy()[:nreal], axis=1)
+            pred = np.argmax(host(out)[:nreal], axis=1)
             correct += float(np.sum(pred == np.asarray(data["y"])[:nreal]))
             loss_sum += float(loss) * nreal
             n_sum += nreal

@@ -41,6 +41,13 @@ with ``device_transform`` and ``device_augment``, e.g.
 that is not an ``ArrayLoader`` then raises (JAX driver.py:106-120 keeps
 it on the host without a word).  ``mesh`` is the trainer's
 (``parallel/mesh.py``).
+
+``allow_tf32`` (default False) sets whether the card's float32
+convolutions and matmuls may run in TF32 (``utils/precision.set_tf32``,
+both flags from the one option); ``run`` sets it before it builds the
+trainer and prints both settings.  The JAX package has no such switch.
+A model's compute dtype comes in with the live ``model`` option, as in
+the JAX package (``options(model=DenseNet3(dtype=torch.bfloat16))``).
 """
 
 from __future__ import annotations
@@ -60,6 +67,7 @@ from optwboundeigenval_tpu_torch.models.backbones import load_pretrained_npz
 from optwboundeigenval_tpu_torch.train.asymmetric_valley import AsymmetricValleyTrainer
 from optwboundeigenval_tpu_torch.train.task import Task, losses
 from optwboundeigenval_tpu_torch.train.trainer import SpectralTrainer
+from optwboundeigenval_tpu_torch.utils import precision
 
 _REPLACE = {"tol": "eps"}  # option name -> trainer argument (driver.py:52)
 # options the driver and the task read, beside the trainer's arguments
@@ -79,6 +87,8 @@ _DRIVER_KEYS = {
     "scaler_mean", "scaler_scale",
     # the train set on the device
     "device_data", "device_transform", "device_augment",
+    # TF32 in the card's float32 convolutions and matmuls
+    "allow_tf32",
 }
 _TEST_KEYS = ("classes", "model_classes", "other_classes")
 
@@ -156,6 +166,7 @@ def _loaders(options, batch_size):
 
 def run(options: Dict[str, Any]) -> SpectralTrainer:
     """Execute the cascade (opt.py:2012-2102) and return the trainer."""
+    print(precision.describe(precision.set_tf32(options.get("allow_tf32", False))))
     trainer = build_trainer(options)
     train_loader, valid_loader, test_loaders = _loaders(
         options, options.get("batch_size", 128))

@@ -28,6 +28,7 @@ from torch.func import functional_call
 from optwboundeigenval_tpu_torch.ops import curvature
 from optwboundeigenval_tpu_torch.train import checkpoints
 from optwboundeigenval_tpu_torch.train.trainer import roc_auc
+from optwboundeigenval_tpu_torch.utils.precision import host
 
 
 class AverageMeter:
@@ -135,7 +136,7 @@ def validate(task, params, model_state, loader) -> Tuple[float, float]:
         loss, out = task.eval_loss(params, model_state, _put(data, device))
         nreal = _nreal(data)
         y = np.asarray(data["y"])[:nreal]
-        o = out.cpu().numpy()[:nreal]
+        o = host(out)[:nreal]
         if y.ndim == 1:
             acc = float(np.mean(np.argmax(o, axis=1) == y)) * 100
         else:
@@ -155,7 +156,7 @@ def test(task, params, model_state, loader) -> Tuple:
     for data in loader:
         out = torch.sigmoid(task.predict(params, model_state, _put(data, device)))
         nreal = _nreal(data)
-        outputs.append(out.cpu().numpy()[:nreal])
+        outputs.append(host(out)[:nreal])
         labels.append(np.asarray(data["y"])[:nreal])
     outputs = np.concatenate(outputs)
     labels = np.concatenate(labels)

@@ -106,6 +106,7 @@ from optwboundeigenval_tpu_torch.parallel import mesh as meshlib
 from optwboundeigenval_tpu_torch.parallel.sharding import Sharded, gather_params
 from optwboundeigenval_tpu_torch.train import checkpoints
 from optwboundeigenval_tpu_torch.train.task import Task
+from optwboundeigenval_tpu_torch.utils.precision import host
 from optwboundeigenval_tpu_torch.utils.timing import Timers
 from optwboundeigenval_tpu_torch.utils.tree import (
     tree_axpy,
@@ -912,7 +913,7 @@ class SpectralTrainer:
                 flush()
         if buf:
             flush()
-        f_sum = sum(float(np.sum(l.cpu().numpy() * b)) for l, b in chunks)
+        f_sum = sum(float(np.sum(host(l) * b)) for l, b in chunks)
         w_sum = sum(float(np.sum(b)) for _, b in chunks)
         return f_sum / max(w_sum, 1.0)
 
@@ -1050,8 +1051,13 @@ class SpectralTrainer:
         outputs_all, labels_all, oc = [], [], []
         for data in loader:
             nreal = int(np.sum(np.asarray(data["w"]) > 0))
-            ops = (data["ops"] if "ops" in data
-                   else self._predict(data, crops).cpu().numpy())[:nreal]
+            if "ops" in data:
+                ops, out_dtype = data["ops"][:nreal], None
+            else:
+                # the loss in the outputs' dtype, as the JAX package takes
+                # it; the metrics on their values widened to float32
+                out = self._predict(data, crops)
+                ops, out_dtype = host(out)[:nreal], out.dtype
             target = np.asarray(data["y"])[:nreal]
             sizes.append(nreal)
             if other_classes is not None and classes is not None:
@@ -1061,7 +1067,8 @@ class SpectralTrainer:
             if classes is not None and target.ndim > 1:
                 target = target[:, classes]
                 ops = ops[:, model_classes if model_classes is not None else classes]
-            f_list.append(float(self.task.loss(torch.from_numpy(ops),
+            out = torch.from_numpy(ops)
+            f_list.append(float(self.task.loss(out.to(out_dtype or out.dtype),
                                                torch.from_numpy(target), None)))
             if "sigmoid" in tf or "logit" in tf:
                 ops = 1.0 / (1.0 + np.exp(-ops))
@@ -1151,8 +1158,8 @@ class SpectralTrainer:
             if not contributes:
                 w = np.zeros_like(w)
             ops = self._predict(data, crops)
-            gather = lambda t: meshlib.all_gather_rows(
-                torch.as_tensor(t).to(mesh.device), mesh).cpu().numpy()
+            gather = lambda t: host(meshlib.all_gather_rows(
+                torch.as_tensor(t).to(mesh.device), mesh))
             ops, yb, wb = gather(ops), gather(data["y"]), gather(w)
             keep = wb > 0
             yield {"ops": ops[keep], "y": yb[keep], "w": np.ones(int(keep.sum()), np.float32)}

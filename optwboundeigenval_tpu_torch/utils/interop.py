@@ -63,11 +63,21 @@ Tree = Dict[str, torch.Tensor]
 
 
 def _t(a) -> torch.Tensor:
-    return torch.from_numpy(np.array(a, order="C"))
+    a = np.array(a, order="C")
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16, which torch cannot read
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 def _a(t: torch.Tensor) -> np.ndarray:
-    return t.detach().cpu().numpy()
+    """``t`` as numpy; a bfloat16 tensor as ``ml_dtypes.bfloat16`` (the
+    type of the JAX package's bfloat16 arrays), through float32."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+
+        return t.float().numpy().astype(ml_dtypes.bfloat16)
+    return t.numpy()
 
 
 def _densenet3_pairs(n_blocks: int, bottleneck: bool = True

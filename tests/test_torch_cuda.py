@@ -15,6 +15,7 @@ from optwboundeigenval_tpu_torch.ops import pallas_kernels as pk
 from optwboundeigenval_tpu_torch.optim.api import sgd
 from optwboundeigenval_tpu_torch.train.task import Task
 from optwboundeigenval_tpu_torch.train.trainer import SpectralTrainer
+from optwboundeigenval_tpu_torch.utils import precision
 from optwboundeigenval_tpu_torch.utils.tree import tree_norm, tree_sub
 
 pytestmark = pytest.mark.cuda
@@ -24,8 +25,7 @@ pytestmark = pytest.mark.cuda
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    precision.set_tf32(False)  # as driver.run sets it by default
     return torch.device("cuda")
 
 
@@ -581,3 +581,76 @@ def test_mem_track_reads_the_card(cuda, tmp_path, capsys):
     tr = _forest_knob_run(cuda, tmp_path, "MEM", mem_track=True)
     assert tr.mem_max > 0
     assert "Running Max device memory used (in bytes):" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("init", [False, True])
+@pytest.mark.parametrize("case", ["ragged", "mixed"])
+def test_kernel_bfloat16_entry_matches_plain(cuda, init, case):
+    """K1's bfloat16 entry: a ragged bfloat16 tree (an unaligned view leaf,
+    empty leaves, ragged tails) in one launch, and the gemm CNNUSPS's
+    mixed tree (bfloat16 conv leaves beside float32 dense ones), one launch
+    a dtype; bit-equal to the plain version."""
+    sizes = [5000, 0, 1000, 1, 3, 2049, 0, 8 * 9, 7]
+    bf = _tree(cuda, torch.bfloat16, sizes, 3, unaligned=(2,))
+    bf_d = _tree(cuda, torch.bfloat16, sizes, 4, unaligned=(2,))
+    if case == "mixed":
+        f32 = _tree(cuda, torch.float32, [8192, 64, 640, 10], 5)
+        f32_d = _tree(cuda, torch.float32, [8192, 64, 640, 10], 6)
+        accs, deltas, launches = bf[:4] + f32 + bf[4:], bf_d[:4] + f32_d + bf_d[4:], 2
+    else:
+        accs, deltas, launches = bf, bf_d, 1
+    alpha = torch.tensor(0.5 + 1.0 / 3.0, device=cuda)
+    want = pk.axpy_accumulate_plain([a.clone() for a in accs], deltas, alpha, init=init)
+    if init:
+        for a in accs:
+            a.fill_(float("nan"))
+    before = pk.axpy_accumulate.launches
+    pk.axpy_accumulate(accs, deltas, alpha, init=init)
+    torch.cuda.synchronize()
+    assert pk.axpy_accumulate.launches - before == launches
+    for a, w in zip(accs, want):
+        assert a.dtype == w.dtype and torch.equal(a, w)
+    with pytest.raises(TypeError, match="bfloat16"):
+        half = torch.zeros(4, device=cuda, dtype=torch.float16)
+        pk.axpy_accumulate([accs[0], half], [deltas[0], half.clone()], alpha)
+
+
+def test_main_float32_step_runs_with_tf32_off(cuda, tmp_path, monkeypatch, capsys):
+    """``main``'s float32 steps run with both TF32 flags off, the setting
+    every card number of the port was taken at, whatever they were before."""
+    from optwboundeigenval_tpu_torch import main as entry
+
+    seen = []
+    step = SpectralTrainer.train_step
+    monkeypatch.setattr(SpectralTrainer, "train_step", lambda self, *a, **k: (
+        seen.append(precision.tf32()), step(self, *a, **k))[1])
+    precision.set_tf32(True)
+    tr = entry.main(["main", "forest_best", "max_iter=1", f"log_dir='{tmp_path}/logs'",
+                     f"model_dir='{tmp_path}/models'"])
+    assert tr.device.type == "cuda" and seen and set(seen) == {(False, False)}
+    assert all(p.dtype == torch.float32 for p in tr.params.values())
+    assert "tf32: cudnn.allow_tf32=False, cuda.matmul.allow_tf32=False" in capsys.readouterr().out
+
+
+def test_bfloat16_densenet_step_on_the_card(cuda):
+    """Two micro-batched steps of a small DenseNet3 at bfloat16 compute on
+    the card: float32 parameters, statistics and accumulates (K1 launches
+    ``2 * (pow_iters + 2)`` a step, its float32 entry), bfloat16 logits."""
+    torch.manual_seed(0)
+    tr = SpectralTrainer(Task(model=DenseNet3(depth=10, growth_rate=4, dtype=torch.bfloat16),
+                              has_batch_stats=True),
+                         sgd(0.1, momentum=0.9), hvp_micro=2, mu=0.01, K=0.0,
+                         pow_iter_eps=0.05, device="cuda")
+    rng = np.random.default_rng(0)
+    for _ in range(2):
+        batch = {"x": rng.normal(size=(8, 32, 32, 3)).astype(np.float32),
+                 "y": rng.integers(0, 10, size=8).astype(np.int32)}
+        before = pk.axpy_accumulate.launches
+        m = tr.train_step(batch)
+        torch.cuda.synchronize()
+        assert m["step_ok"] and np.isfinite(m["rho"])
+        assert pk.axpy_accumulate.launches - before == 2 * (m["pow_iters"] + 2)
+    assert all(t.dtype == torch.float32 for t in tr.params.values())
+    assert all(t.dtype == torch.float32 for t in tr.model_state.values())
+    out = tr.task.predict(tr.params, tr.model_state, tr.put_batch(batch))
+    assert out.dtype == torch.bfloat16 and out.is_cuda

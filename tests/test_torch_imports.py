@@ -129,3 +129,14 @@ def test_knob_and_mesh_modules_import_alone(name):
     data-parallel mesh import in a fresh interpreter without jax, flax,
     optax, sklearn, matplotlib, the JAX package or the repo's ``scripts``."""
     test_analysis_modules_import_alone(name)
+
+
+DTYPE = ["models.layers", "models.norm", "utils.precision", "ops.pallas_kernels"]
+
+
+@pytest.mark.parametrize("name", DTYPE)
+def test_dtype_modules_import_alone(name):
+    """The compute-dtype layers, BatchNorm, the TF32 switch and the K1
+    wrapper import in a fresh interpreter without jax, flax, optax,
+    sklearn, matplotlib, the JAX package or the repo's ``scripts``."""
+    test_analysis_modules_import_alone(name)

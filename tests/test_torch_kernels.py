@@ -139,12 +139,16 @@ def test_wrapper_rejects_mismatched_trees():
 
 def test_launch_rejects_non_fp32_and_non_contiguous():
     # the checks that guard the CUDA launch, run before any build: the
-    # kernel takes float32 and float64, contiguous leaves only
+    # kernel takes float32, float64 and bfloat16, contiguous leaves only,
+    # and a tree with a leaf of any other dtype launches nothing
     one = torch.tensor(1.0)
-    for dtype in (torch.float16, torch.bfloat16, torch.int32):
+    for dtype in (torch.float16, torch.int32):
         x = torch.zeros(4, dtype=dtype)
-        with pytest.raises(TypeError, match="float32 or float64"):
+        with pytest.raises(TypeError, match="float32, float64 or bfloat16"):
             tpk._launch([x], [x], one, False)
+        mixed = [torch.zeros(3), torch.zeros(2, dtype=torch.bfloat16), x]
+        with pytest.raises(TypeError, match="float32, float64 or bfloat16"):
+            tpk._launch(mixed, [t.clone() for t in mixed], one, False)
     with pytest.raises(ValueError, match="contiguous"):
         tpk._launch([torch.zeros(3), torch.zeros(4, 4).t()],
                     [torch.zeros(3), torch.zeros(4, 4)], one, False)
@@ -167,3 +171,53 @@ def test_library_name_tracks_source():
     p = cuda_build.library_path("axpy_accumulate")
     assert p.parent == cuda_build.BUILD_DIR
     assert p.name.startswith("axpy_accumulate-") and p.suffix == ".so"
+
+
+@pytest.mark.parametrize("init", [False, True])
+def test_plain_bfloat16_rounds_once_from_float32(init):
+    """A bfloat16 leaf: ``fl_bf16(fl32(acc + fl32(alpha * delta)))``, the
+    sum taken in float32 and rounded once to nearest even, not twice."""
+    rng = np.random.default_rng(4)
+    acc = torch.from_numpy(rng.normal(size=1000).astype(np.float32)).to(torch.bfloat16)
+    delta = torch.from_numpy(rng.normal(size=1000).astype(np.float32)).to(torch.bfloat16)
+    alpha = torch.tensor(0.5 + 1.0 / 3.0)
+    t = alpha * delta.float()
+    want = (t if init else acc.float() + t).to(torch.bfloat16)
+    got = acc.clone()
+    tpk.axpy_accumulate(got, delta, alpha, init=init)
+    assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+    if not init:  # the inputs tell one rounding from two
+        assert not torch.equal(want, acc + (alpha * delta.float()).to(torch.bfloat16))
+    # alpha in float64 is read as float32, as the kernel reads it
+    got64 = acc.clone()
+    tpk.axpy_accumulate(got64, delta, alpha.double(), init=init)
+    assert torch.equal(got64, want)
+
+
+def test_plain_mixed_tree_groups_by_dtype():
+    """The gemm CNNUSPS's tree at bfloat16 compute: bfloat16 conv leaves
+    beside float32 dense ones (and a float64 group).  Each bfloat16 leaf
+    rounds once from float32; every other leaf is what a tree of its
+    dtype alone gives; the groups launch in order of first appearance."""
+    rng = np.random.default_rng(5)
+    dtypes = [torch.bfloat16, torch.bfloat16, torch.float32, torch.float64, torch.float32,
+              torch.bfloat16]
+    sizes = [(8, 1, 3, 3), (0,), (64, 128), (5,), (10,), (32,)]
+    accs = [torch.from_numpy(rng.normal(size=s)).to(dt) for s, dt in zip(sizes, dtypes)]
+    deltas = [torch.from_numpy(rng.normal(size=s)).to(dt) for s, dt in zip(sizes, dtypes)]
+    alpha = torch.tensor(0.37)
+    got = [a.clone() for a in accs]
+    tpk.axpy_accumulate(got, deltas, alpha)
+    for a, d, g in zip(accs, deltas, got):
+        assert g.dtype == a.dtype
+        if a.dtype == torch.bfloat16:
+            want = (a.float() + alpha * d.float()).to(torch.bfloat16)
+        else:
+            want = tpk.axpy_accumulate_plain(a.clone(), d, alpha)
+        assert torch.equal(g, want)
+    groups = tpk.dtype_groups(accs, deltas)
+    assert [g[0][0].dtype for g in groups] == [torch.bfloat16, torch.float32, torch.float64]
+    assert [len(g[0]) for g in groups] == [3, 2, 1]
+    assert all(x is y for g in groups for x, y in zip(g[0], [a for a in accs
+                                                                if a.dtype == g[0][0].dtype]))
+    assert tpk.axpy_accumulate.launches == 0  # the CPU never launches
