@@ -145,7 +145,7 @@ Phases (any failure exits non-zero and prints no result line):
     recipe through ``driver.run``, the train set on the card
     (``device_data``, ``cifar_augment_device`` for the host augmentation),
     ``scan_steps=8``, ``donate``, ``mem_track`` and epoch 0 profiled into
-    ``profile_dir``, two epochs on the first 128 rows (4 steps, one chunk
+    ``profile_dir``, two epochs on the first 64 rows (2 steps, one chunk
     an epoch; a cut for time only): s/epoch, steps/s, mean ``pow_iters``,
     ``mem_max``, the peak memory, the trace's size, events and busy share;
     the unprofiled epoch 1 against epoch 1 of the same run with
@@ -162,7 +162,9 @@ Phases (any failure exits non-zero and prints no result line):
     batch 4, against one process, and a one-rank NCCL group on
     ``forest_best`` (float64) for one epoch through ``driver.run`` against
     ``mesh=None``, all within ``CARD_F64_RTOL``;
-17. the ``model`` mesh axis (``parallel/sharding.py``), gloo ranks sharing
+17. the ``model`` mesh axis (``parallel/sharding.py``: each sharded conv
+    and dense layer computes its own output columns and assembles the
+    whole output over the ``model`` group), gloo ranks sharing
     the card (this script started with ``--rank ... --phase``): (a) two
     ranks as ``data=1 x model=2``, ``chestxray_mu0_01_K0``'s
     ``CXRModel(densenet121)`` sharded at the default ``min_elems`` (the
@@ -177,7 +179,10 @@ Phases (any failure exits non-zero and prints no result line):
     from the moments it holds, within ``CARD_F32_RTOL``, then the same
     but the params at float64, 64 px, batch 2 within ``CARD_F64_RTOL``,
     the step's seconds and each process's peak device memory, sharded and
-    not; (b) four ranks as ``data=2 x model=2``, the JAX package's multi-chip dryrun (``__graft_entry__.py``)
+    not; at float32, for each rank and one process beside the card's name
+    and power limit, the step's all-reduces over the ``model`` group and
+    its column assemblies with their bytes, and one more step profiled
+    (device-busy ms, kernels); (b) four ranks as ``data=2 x model=2``, the JAX package's multi-chip dryrun (``__graft_entry__.py``)
     on CNNUSPS at float64 with ``min_elems=1024``: a step, a
     ``scan_steps=2`` epoch, a LOBPCG step, a Lanczos step, the control,
     flagship-knob and ``auto`` epochs, each against one process; (c) the
@@ -617,8 +622,8 @@ def phase_slice(device="cuda", steps=STEPS):
 def phase_profile(trainer, batch, label="densenet40 hvp_micro=2", step=None):
     """One more step under ``torch.profiler`` (``trainer.train_step``, or
     ``step()``): the device's busy share of the step's wall time, K1's
-    share, and the kernels that take most.  Returns the busy share, or
-    None when the profiler saw no device time."""
+    share, and the kernels that take most.  Returns ``(wall ms, device-busy
+    ms, kernel launches)``, or None when the profiler saw no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -631,22 +636,29 @@ def phase_profile(trainer, batch, label="densenet40 hvp_micro=2", step=None):
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
     t1 = time.perf_counter()
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in kernels)
+    # (launches, ns) by kernel name, summed from the raw device events:
+    # key_averages() first builds the whole event tree, the larger part of
+    # the smoke's profiling time on a CXR step (PERF.md, section 6)
+    kernels = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            n, ns = kernels.get(e.name(), (0, 0))
+            kernels[e.name()] = (n + 1, ns + e.duration_ns())
+    busy_us = sum(ns for _, ns in kernels.values()) / 1e3
+    launches = sum(n for n, _ in kernels.values())
     if busy_us == 0:
         log("profile: the profiler recorded no device time (not measured)")
         return None
-    k1_us = sum(e.self_device_time_total for e in kernels if "axpy" in e.key)
+    k1_us = sum(ns for k, (_, ns) in kernels.items() if "axpy" in k) / 1e3
     iters = m["pow_iters"] if isinstance(m, dict) and "pow_iters" in m else "-"
     log(f"profile {label} (one step, pow_iters {iters}): wall {wall_us / 1e3:.1f} ms, "
         f"device busy {busy_us / 1e3:.1f} ms ({100 * busy_us / wall_us:.1f}%), "
         f"idle {100 * (1 - busy_us / wall_us):.1f}%, K1 {k1_us / 1e3:.2f} ms "
-        f"({100 * k1_us / busy_us:.2f}% of busy), "
-        f"{sum(e.count for e in kernels)} kernel launches; the profile took "
-        f"{time.perf_counter() - t1:.1f} s to read")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
-        log(f"  {e.self_device_time_total / 1e3:9.2f} ms {e.count:6d}x  {e.key[:90]}")
-    return busy_us / wall_us
+        f"({100 * k1_us / busy_us:.2f}% of busy), {launches} kernel launches; the "
+        f"profile took {time.perf_counter() - t1:.1f} s to read")
+    for k, (n, ns) in sorted(kernels.items(), key=lambda kv: -kv[1][1])[:6]:
+        log(f"  {ns / 1e6:9.2f} ms {n:6d}x  {k[:90]}")
+    return wall_us / 1e3, busy_us / 1e3, launches
 
 
 def phase_card_vs_cpu(trainer, batch):
@@ -1287,8 +1299,9 @@ def run_comparator(name, device="cuda", tmp="."):
     train_loader = driver._loaders(opts, trainer.batch_size)[0]
     data = next(iter(train_loader))
     step = (lambda: trainer.train_epoch([data])) if av else None
-    busy = (phase_profile(trainer, trainer.put_batch(data), f"{name}", step)
+    prof = (phase_profile(trainer, trainer.put_batch(data), f"{name}", step)
             if device == "cuda" else None)
+    busy = None if prof is None else prof[1] / prof[0]
     log(f"{name}: {trainer.ndim} parameters, {trainer.optimizer.name}, {steps} steps in "
         f"{epochs} epochs, driver.run {wall:.1f} s, {per_epoch:.2f} s/epoch, "
         f"{steps / t['G']:.2f} steps/s, {iters}, busy share of one profiled step "
@@ -2523,14 +2536,14 @@ def _flagship_run(label, tmp, device, rows, epochs, **knobs):
     return trainer, launches, chunks[0], per_epoch
 
 
-def knobs_flagship(tmp, device="cuda", rows=128, epochs=2, off=None):
+def knobs_flagship(tmp, device="cuda", rows=64, epochs=2, off=None):
     """Phase 16 (a): the JAX package's device-bound flagship leg
     (bench.py:673-703) on the published DenseNet-40 recipe: the train set
     on the card with ``cifar_augment_device`` for the host augmentation,
     ``scan_steps=8``, ``donate``, ``mem_track``, epoch 0 profiled into
-    ``profile_dir``, on the first ``rows`` rows (4 steps, one chunk an
+    ``profile_dir``, on the first ``rows`` rows (2 steps, one chunk an
     epoch; a cut for the time limit only: the profiled epoch's trace of 256
-    rows took 1.4 GB).  Epoch 1 runs unprofiled and is compared with epoch
+    rows took 1.4 GB, of 128 rows 650 MB).  Epoch 1 runs unprofiled and is compared with epoch
     1 of the same run with ``scan_steps=1`` and no ``donate`` (the same
     trajectory, so the same HVPs), and with phase 10's run of the recipe
     with every knob off (``off``, phase 10's numbers).  Returns K1's launches."""
@@ -2549,7 +2562,7 @@ def knobs_flagship(tmp, device="cuda", rows=128, epochs=2, off=None):
         f"epoch 1 {rate(per_epoch):.3f} steps/s against {rate(base):.3f} with scan_steps=1 "
         f"and no donate ({rate(per_epoch) / rate(base):.3f}x)")
     if off:
-        log(f"knobs off (phase 10, the same recipe on 128 rows, one epoch): {off['s_epoch']:.2f} "
+        log(f"knobs off (phase 10, the recipe on 128 rows, one epoch): {off['s_epoch']:.2f} "
             f"s/epoch, {off['steps_s']:.3f} steps/s, mean pow_iters {off['pow']:.2f}, "
             f"max_memory_allocated {off['peak']} B; steps/s of epoch 1 on/off "
             f"{rate(per_epoch) / off['steps_s']:.3f}x")
@@ -2842,6 +2855,38 @@ def _bytes(tree):
     return sum(t.numel() * t.element_size() for t in tree.values())
 
 
+@contextlib.contextmanager
+def _collectives_counted(mesh):
+    """Counts, while the block runs, every ``torch.distributed.all_reduce``
+    (over the ``model`` group or not) and every column assembly of a
+    sharded layer (``models/layers.py``), with their bytes."""
+    from optwboundeigenval_tpu_torch.models import layers
+
+    n = {"all-reduces": 0, "bytes": 0, "model-group all-reduces": 0, "model-group bytes": 0,
+         "column assemblies": 0, "assembled bytes": 0}
+    reduce, columns = torch.distributed.all_reduce, layers.assemble_columns
+
+    def counting_reduce(t, *args, **kwargs):
+        size = t.numel() * t.element_size()
+        n["all-reduces"] += 1
+        n["bytes"] += size
+        if mesh is not None and kwargs.get("group") is mesh.model_group:
+            n["model-group all-reduces"] += 1
+            n["model-group bytes"] += size
+        return reduce(t, *args, **kwargs)
+
+    def counting_columns(y, full, dim, bias=None):
+        n["column assemblies"] += 1
+        n["assembled bytes"] += y.numel() // y.shape[dim] * full * y.element_size()
+        return columns(y, full, dim, bias)
+
+    torch.distributed.all_reduce, layers.assemble_columns = counting_reduce, counting_columns
+    try:
+        yield n
+    finally:
+        torch.distributed.all_reduce, layers.assemble_columns = reduce, columns
+
+
 def _tp_cxr_step(device, f64, mesh=None, px=CXR_PX):
     """Phase 17 (a) on this rank (``mesh``, its large leaves sharded at the
     default ``min_elems``) or one process: one ``chestxray_mu0_01_K0``
@@ -2854,7 +2899,9 @@ def _tp_cxr_step(device, f64, mesh=None, px=CXR_PX):
     the alignment of its deltas and the plain comparison, the bytes
     held, the device memory allocated at the step's start and at its
     peak (above what the process held before the trainer), the step's
-    seconds."""
+    seconds, its all-reduces and column assemblies with their bytes,
+    and, at float32 on the card, one more step profiled (wall ms,
+    device-busy ms, kernels)."""
     from optwboundeigenval_tpu_torch.configs import chestxray_mu0_01_K0 as cfg
     from optwboundeigenval_tpu_torch.ops import curvature
     from optwboundeigenval_tpu_torch.ops import pallas_kernels as pk
@@ -2906,7 +2953,7 @@ def _tp_cxr_step(device, f64, mesh=None, px=CXR_PX):
         return out
 
     batch = next(iter(opts["train_loader"]))
-    with meshlib.active(tr.mesh, tr._sharding):  # the batch's loss through the gathered model
+    with meshlib.active(tr.mesh, tr._sharding):  # the batch's loss, sharded layers split
         loss, _ = tr.task.eval_loss(tr.params, tr.model_state, tr.put_batch(batch))
         f = float(meshlib.all_sum(loss))
     before = {k: t.to("cpu", copy=True) for k, t in tr._full(tr.params).items()}
@@ -2917,10 +2964,11 @@ def _tp_cxr_step(device, f64, mesh=None, px=CXR_PX):
         if cuda:
             torch.cuda.reset_peak_memory_stats()
         start = torch.cuda.memory_allocated() - base if cuda else 0
-        t0 = time.perf_counter()
-        m = tr.train_step(batch)
-        _sync(device)
-        seconds = time.perf_counter() - t0
+        with _collectives_counted(mesh) as collectives:
+            t0 = time.perf_counter()
+            m = tr.train_step(batch)
+            _sync(device)
+            seconds = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated() - base if cuda else 0
         launches = pk.axpy_accumulate.launches
     finally:
@@ -2942,7 +2990,11 @@ def _tp_cxr_step(device, f64, mesh=None, px=CXR_PX):
             "memory": (start, peak),
             "sharded": (len(dims), sum(tr._sharding.shapes[k].numel() for k in dims)
                         if dims else 0),
-            "leaves": len(tr.params), "values": tr.ndim, "bytes": (held, full)}
+            "leaves": len(tr.params), "values": tr.ndim, "bytes": (held, full),
+            "collectives": collectives,
+            "profile": (phase_profile(tr, batch, f"model axis, chestxray f32 {px} px, "
+                                      + ("one process" if mesh is None else f"rank {mesh.rank}"))
+                        if cuda and not f64 else None)}
 
 
 def _tp_dryrun(device, mesh=None):
@@ -3066,13 +3118,14 @@ def _tp_check(label, errs, bound):
 
 def tp_model_axis_cxr(device="cuda", px=CXR_PX):
     """Phase 17 (a): two gloo ranks sharing the card as ``data=1 x
-    model=2``, one ``chestxray_mu0_01_K0`` step with ``hvp_micro=2`` against
-    one process from the same seed: float32 at 224 px (``CARD_F32_RTOL``)
-    and float64 at 64 px (``CARD_F64_RTOL``), the Adam moments and the
-    update each rank applied (against Adam's step from its own moments)
-    included; K1's launches on the local slices, each call bit-equal to
-    its plain version; each process's device memory at the step's peak.
-    Returns K1's launches on rank 0."""
+    model=2``, the sharded layers computing their own output columns, one
+    ``chestxray_mu0_01_K0`` step with ``hvp_micro=2`` against one process
+    from the same seed: float32 at 224 px (``CARD_F32_RTOL``) and float64
+    at 64 px (``CARD_F64_RTOL``), the Adam moments and the update each
+    rank applied (against Adam's step from its own moments) included; K1's
+    launches on the local slices, each call bit-equal to its plain
+    version; each process's device memory at the step's peak; the float32
+    step's cost (:func:`_tp_cost`).  Returns K1's launches on rank 0."""
     from optwboundeigenval_tpu_torch.ops import pallas_kernels as pk
 
     one = {"f32": _tp_cxr_step(device, False, px=px), "f64": _tp_cxr_step(device, True)}
@@ -3129,7 +3182,36 @@ def tp_model_axis_cxr(device="cuda", px=CXR_PX):
             log(f"model axis, chestxray {prec}, rank {r}: device memory allocated at the "
                 f"step's start {start} B, peak {peak} B; one process {one_start} B, peak "
                 f"{one_peak} B ({peak / max(one_peak, 1):.4f}x)")
+    _tp_cost(one["f32"], [res["f32"] for res in ranks], px, device)
     return ranks[0]["f32"]["launches"] + ranks[0]["f64"]["launches"]
+
+
+def _tp_cost(one, ranks, px, device):
+    """Phase 17 (a)'s cost at float32, one process and each rank, every
+    number beside the card's name and power limit: the step's seconds,
+    one profiled step's device-busy ms and kernels, the step's
+    ``model``-group all-reduces and column assemblies with their bytes
+    (on ``data=1 x model=2`` the ``model`` group is the world), its peak
+    above the process's prior allocation, the bytes of params, ``v`` and
+    Adam state held."""
+    card = nvidia_smi() if device == "cuda" else "no card"
+    n, values = ranks[0]["sharded"]
+    assemblies = ranks[0]["collectives"]["column assemblies"]
+    log(f"model axis, chestxray f32 {px} px ({card}): {n} sharded layers, a gather of their "
+        f"weights would all-reduce {4 * values} B a forward; the step ran "
+        f"{assemblies / max(n, 1):.0f} forwards through them")
+    for label, res in [("one process", one)] + [(f"rank {r}", x) for r, x in enumerate(ranks)]:
+        c, prof = res["collectives"], res["profile"]
+        busy = ("not measured" if prof is None else
+                f"{prof[1]:.1f} ms busy of {prof[0]:.1f} ms wall ({100 * prof[1] / prof[0]:.1f}%), "
+                f"{prof[2]} kernels")
+        log(f"model axis cost, chestxray f32 {px} px, {label} ({card}): step "
+            f"{res['seconds']:.2f} s; one profiled step {busy}; model-group all-reduces "
+            f"{c['model-group all-reduces']} ({c['model-group bytes']} B) of "
+            f"{c['all-reduces']} ({c['bytes']} B), of them column assemblies "
+            f"{c['column assemblies']} ({c['assembled bytes']} B); step peak above the prior "
+            f"allocation {res['memory'][1]} B; params, v and Adam state held "
+            f"{sum(res['bytes'][0].values())} B")
 
 
 def tp_dp_tp(device="cuda"):

@@ -38,19 +38,28 @@ from torch import nn
 from optwboundeigenval_tpu_torch.models.activations import relu
 from optwboundeigenval_tpu_torch.models.layers import Conv2d, Linear, cast
 from optwboundeigenval_tpu_torch.models.mlp_forest import reset_torch_default
+from optwboundeigenval_tpu_torch.parallel.sharding import assemble_columns
 
 
 def gemm_conv3x3_same(x: torch.Tensor, weight: torch.Tensor,
-                      bias: torch.Tensor) -> torch.Tensor:
+                      bias: torch.Tensor, out_channels: Optional[int] = None) -> torch.Tensor:
     """3x3 SAME conv of an NCHW batch as im2col and one matmul; the patch
-    columns in ``(kh, kw, in_c)`` order, ``weight`` in torch's OIHW."""
+    columns in ``(kh, kw, in_c)`` order, ``weight`` in torch's OIHW.  A
+    ``weight`` of fewer rows than ``out_channels`` is this rank's slice
+    under the ``model`` mesh axis: the matmul makes its own output
+    columns, assembled over the ``model`` group with the bias
+    (``sharding.assemble_columns``)."""
     b, c, h, w = x.shape
     xp = F.pad(x, (1, 1, 1, 1))
     cols = torch.stack([xp[:, :, dy:dy + h, dx:dx + w]
                         for dy in range(3) for dx in range(3)], dim=1)
     patches = cols.permute(0, 3, 4, 1, 2).reshape(b * h * w, 9 * c)
     out = patches @ weight.permute(2, 3, 1, 0).reshape(9 * c, -1)
-    return (out.reshape(b, h, w, -1) + bias).permute(0, 3, 1, 2)
+    if out_channels is not None and weight.shape[0] != out_channels:
+        out = assemble_columns(out, out_channels, -1, bias)
+    else:
+        out = out + bias
+    return out.reshape(b, h, w, -1).permute(0, 3, 1, 2)
 
 
 def reshape_max_pool2(x: torch.Tensor) -> torch.Tensor:
@@ -85,7 +94,7 @@ class CNNUSPS(nn.Module):
         for conv in (self.conv1, self.conv2, self.conv3):
             if self.conv_impl == "gemm":
                 x = reshape_max_pool2(relu(gemm_conv3x3_same(
-                    *cast(self.dtype, x, conv.weight, conv.bias))))
+                    *cast(self.dtype, x, conv.weight, conv.bias), conv.out_channels)))
             else:
                 x = F.max_pool2d(relu(conv(x)), 2)
         x = relu(self.fc1(x.flatten(1)))  # (B, 32*2*2) in CHW order

@@ -15,6 +15,16 @@ is the port's default, "compute in the parameters' dtype".  The casts are
 explicit ops, not ``torch.autocast``, whose op lists disagree with flax
 (autocast runs ``log_softmax``, ``softmax`` and the reductions in
 float32) and whose cast cache outlives a pass of the curvature products.
+
+Under the ``model`` mesh axis (``parallel/sharding.py``) a layer's weight
+may arrive as this rank's slice of its output features (dim 0 of a
+``Conv2d`` or ``Linear`` weight, dim 1 of a ``ConvTranspose2d`` or
+``Embedding`` one).  The layer then computes its own output columns
+without the bias, and ``sharding.assemble_columns`` makes the whole
+output over the ``model`` group and adds the bias.  A full-shaped weight
+computes the whole layer as ``torch.nn`` does.  A slice in a layer that
+cannot split (a grouped convolution, an embedding with ``max_norm``)
+raises.
 """
 
 from __future__ import annotations
@@ -25,6 +35,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from optwboundeigenval_tpu_torch.parallel.sharding import assemble_columns
+
 
 def cast(dtype: Optional[torch.dtype], *tensors):
     """Each tensor in ``dtype`` (``None`` entries pass); ``dtype=None``
@@ -34,15 +46,26 @@ def cast(dtype: Optional[torch.dtype], *tensors):
     return tuple(None if t is None else t.to(dtype) for t in tensors)
 
 
+def _unsplit(layer: nn.Module, cannot: bool) -> None:
+    """Raise where ``layer``, holding a slice of its weight, cannot split."""
+    if cannot:
+        raise ValueError(f"{layer}: its weight is a slice, and the layer cannot compute "
+                         "its own output columns")
+
+
 class Conv2d(nn.Conv2d):
     def __init__(self, *args, compute_dtype: Optional[torch.dtype] = None, **kwargs):
         super().__init__(*args, **kwargs)
         self.compute_dtype = compute_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.compute_dtype is None:
-            return super().forward(x)
-        return self._conv_forward(*cast(self.compute_dtype, x, self.weight, self.bias))
+        if self.weight.shape[0] == self.out_channels:
+            if self.compute_dtype is None:
+                return super().forward(x)
+            return self._conv_forward(*cast(self.compute_dtype, x, self.weight, self.bias))
+        _unsplit(self, self.groups != 1)
+        x, w, b = cast(self.compute_dtype, x, self.weight, self.bias)
+        return assemble_columns(self._conv_forward(x, w, None), self.out_channels, 1, b)
 
 
 class ConvTranspose2d(nn.ConvTranspose2d):
@@ -51,11 +74,17 @@ class ConvTranspose2d(nn.ConvTranspose2d):
         self.compute_dtype = compute_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.compute_dtype is None:
+        whole = self.weight.shape[1] * self.groups == self.out_channels
+        if whole and self.compute_dtype is None:
             return super().forward(x)
         x, w, b = cast(self.compute_dtype, x, self.weight, self.bias)
-        return F.conv_transpose2d(x, w, b, self.stride, self.padding, self.output_padding,
-                                  self.groups, self.dilation)
+        if whole:
+            return F.conv_transpose2d(x, w, b, self.stride, self.padding, self.output_padding,
+                                      self.groups, self.dilation)
+        _unsplit(self, self.groups != 1)
+        y = F.conv_transpose2d(x, w, None, self.stride, self.padding, self.output_padding,
+                               self.groups, self.dilation)
+        return assemble_columns(y, self.out_channels, 1, b)
 
 
 class Linear(nn.Linear):
@@ -64,7 +93,10 @@ class Linear(nn.Linear):
         self.compute_dtype = compute_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(*cast(self.compute_dtype, x, self.weight, self.bias))
+        x, w, b = cast(self.compute_dtype, x, self.weight, self.bias)
+        if w.shape[0] == self.out_features:
+            return F.linear(x, w, b)
+        return assemble_columns(F.linear(x, w), self.out_features, -1, b)
 
 
 class Embedding(nn.Embedding):
@@ -76,8 +108,12 @@ class Embedding(nn.Embedding):
         self.compute_dtype = compute_dtype
 
     def forward(self, idx: torch.Tensor) -> torch.Tensor:
-        if self.compute_dtype is None:
+        whole = self.weight.shape[1] == self.embedding_dim
+        if whole and self.compute_dtype is None:
             return super().forward(idx)
         (w,) = cast(self.compute_dtype, self.weight)
-        return F.embedding(idx, w, self.padding_idx, self.max_norm, self.norm_type,
-                           self.scale_grad_by_freq, self.sparse)
+        if not whole:
+            _unsplit(self, self.max_norm is not None)
+        y = F.embedding(idx, w, self.padding_idx, self.max_norm, self.norm_type,
+                        self.scale_grad_by_freq, self.sparse)
+        return y if whole else assemble_columns(y, self.embedding_dim, -1)

@@ -237,3 +237,15 @@ def vghv_microbatched(loss_fn: LossFn, params: Tree, batch, v: Tree,
     must hold here too."""
     return meshlib.all_sum_tree(_accumulate((_vghv(loss_fn, params, mb, v), s)
                                             for mb, s in _micro_batches(batch, num_micro)))
+
+
+def loss_grad_hvp_vghv(loss_fn: LossFn, params: Tree, batch, v: Tree
+                       ) -> Tuple[torch.Tensor, Tree, Callable[[Tree], Tree], Tree]:
+    """``(loss, grad, hvp_fn, vghv)`` for one batch (JAX
+    ``curvature.loss_grad_hvp_vghv``): the loss and gradient, the kept
+    linearization's HVP map and ``v^T (grad H) v``.  The trainer composes
+    the pieces itself, so that the vGHv pass runs only when the penalty is
+    active."""
+    loss, grads = value_and_grad(loss_fn, params, batch)
+    _, hvp_fn = linearize_hvp(loss_fn, params, batch)
+    return loss, grads, hvp_fn, vghv(loss_fn, params, batch, v)

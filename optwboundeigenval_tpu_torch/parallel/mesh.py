@@ -27,10 +27,15 @@ data coordinate.
   counts once.  A gradient, HVP or vGHv (:func:`all_sum_tree`) sums a
   replicated leaf over the world and a sharded leaf over its ``data``
   group: the ``model``-group sum of a sharded leaf already happens in
-  the autograd graph, whose gather of the full weight is an
-  :func:`all_sum_diff` over the ``model`` group (its backward the
-  reduce-scatter).  With ``model = 1`` the ``data`` group is the world
-  and all of this is plain data parallelism.
+  the autograd graph.  There a sharded layer computes its own output
+  columns and assembles the whole output by an :func:`all_sum_diff` over
+  the ``model`` group (``sharding.assemble_columns``), whose backward
+  all-reduces the output gradient, so the weight slice's gradient is
+  complete on its rank.  The input's gradient leaves the layer as this
+  rank's share, from its columns; the world sum of a replicated leaf
+  completes those shares with the ``1 / model`` loss shares of the rest
+  of the graph.  With ``model = 1`` the ``data`` group is the world and
+  all of this is plain data parallelism.
 * :func:`all_sum_diff` is an all-reduce that autograd differentiates to
   any order (the vGHv pass differentiates BatchNorm three times).
 * A host-side decision, such as an eigensolver's stop test, is taken
@@ -158,8 +163,9 @@ def make_mesh(data: Optional[int] = None, model: int = 1, device=None) -> Mesh:
 def active(mesh: Optional[Mesh], sharding=None):
     """Losses, BatchNorm, dropout, the curvature products and the
     eigensolvers inside reduce over ``mesh`` (nothing with None); under a
-    ``sharding`` (``parallel/sharding.py``) the model gathers its sharded
-    leaves and the tree helpers reduce them over the ``model`` group."""
+    ``sharding`` (``parallel/sharding.py``) the sharded layers compute
+    their own output columns and the tree helpers reduce the sharded
+    leaves over the ``model`` group."""
     token = _ACTIVE.set((mesh, sharding))
     try:
         yield

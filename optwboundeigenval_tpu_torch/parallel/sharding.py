@@ -1,34 +1,46 @@
-"""Parameter sharding over the mesh's ``model`` axis (counterpart of
+"""Tensor parallelism over the mesh's ``model`` axis (counterpart of
 ``optwboundeigenval_tpu/parallel/sharding.py``).
 
-The JAX package shards the trailing (output-feature) dimension of every
-kernel of at least ``min_elems`` values whose trailing dimension divides
-the ``model`` axis, and lets XLA partition the matmuls.  The port's
-``nn.Linear`` weight is ``(out, in)`` and its ``nn.Conv2d`` weight ``(out,
-in, kh, kw)`` (``utils/interop.py`` transposes flax's ``(in, out)`` and
-``(kh, kw, in, out)`` into them), so the same output feature is dim 0
-here, and :func:`infer_param_specs` applies JAX's size and divisibility
-tests to it.
+The JAX package shards the output features of every kernel of at least
+``min_elems`` values whose output-feature dimension divides the ``model``
+axis, and XLA partitions the matmuls and convolutions: each device
+computes its own output columns.  flax keeps the output feature last
+(``(in, out)``, ``(kh, kw, in, out)``, an embedding's ``(num,
+features)``).  torch keeps it where the layer type puts it
+(``utils/interop.py`` maps the one layout to the other):
 
-A rank keeps only its slice of a sharded leaf: rows ``[c D / M, (c + 1)
-D / M)`` of dim 0 for model coordinate ``c`` of ``M``.  That holds for
-``params``, the eigenvector ``v`` and the params-shaped optimizer state
-(:func:`shard_params`, :meth:`Sharding.local`).  The model sees whole
-weights: under an active sharding (``mesh.active(mesh, sharding)``)
-``Task`` gathers the sharded leaves before each forward
-(:meth:`Sharding.gather`), each slice zero-padded to the full shape and
-summed over the ``model`` group by ``mesh.all_sum_diff``.  The sum of one
-value and zeros is that value, so the gather is exact; its backward is
-the same all-reduce followed by the slice (a reduce-scatter), which
-autograd differentiates again, so the gradient, the HVP and the vGHv of
-a sharded leaf come out as this rank's slices.  What the sharding divides
-is the memory of the parameters, the eigenvector and the optimizer
-state; every rank of a ``model`` group computes whole layers.
+* ``Conv2d`` ``(out, in, kh, kw)`` and ``Linear`` ``(out, in)``: dim 0;
+* ``ConvTranspose2d`` ``(in, out, kh, kw)`` and ``Embedding`` ``(num,
+  features)``: dim 1.
+
+:func:`infer_param_specs` applies JAX's size and divisibility tests to
+that dimension, taken from the layer that owns the leaf
+(:func:`output_dims`).
+
+A rank keeps only its slice of a sharded leaf: indices ``[c D / M, (c +
+1) D / M)`` of the output-feature dimension for model coordinate ``c``
+of ``M``.  That holds for ``params``, the eigenvector ``v`` and the
+params-shaped optimizer state (:func:`shard_params`,
+:meth:`Sharding.local`).  A layer whose weight arrives as such a slice
+(``models/layers.py``, the gemm conv of ``models/cnn_usps.py``) computes
+its own output columns, without the bias.  :func:`assemble_columns`
+then zero-pads them to the full width at this rank's offset, sums that
+over the ``model`` group (``mesh.all_sum_diff``) and adds the whole
+bias.  The sum of one value and zeros is that value, so the whole output
+is exact.  The assembly's backward is the same all-reduce of the output
+gradient, then the slice.  So a rank's weight slice gets its complete
+gradient, and its share of the input's gradient comes from its own
+columns.  The sum of a replicated leaf's shares over the world
+(``mesh.all_sum_tree``) completes them; autograd differentiates all of
+it again for the HVP and the vGHv.  gloo has no reduce-scatter, so the
+assembly is an all-reduce of zero-padded activations: each forward sends
+every sharded layer's whole output, and no weight.
 
 A leaf is this rank's slice when its sharded dimension is shorter than
-the full shape's (:meth:`Sharding.is_local`); a full-shaped leaf under a
-sharding, such as the gathered tree that K-FAC works on, is treated as
-replicated everywhere.
+the full shape's (:meth:`Sharding.is_local`).  A full-shaped weight
+computes its whole layer, under a sharding too: K-FAC's capture, the
+checkpoints and the ``.pt`` export work on the gathered tree
+(:meth:`Sharding.gather_tree`).
 """
 
 from __future__ import annotations
@@ -37,26 +49,74 @@ import dataclasses
 from typing import Dict, Optional
 
 import torch
+import torch.nn.functional as F
+from torch import nn
 
 from optwboundeigenval_tpu_torch.parallel import mesh as meshlib
 from optwboundeigenval_tpu_torch.parallel.mesh import Mesh
 
 Tree = Dict[str, torch.Tensor]
 
+# weight layouts by where the output feature sits
+_OUT_FIRST = (nn.Conv2d, nn.Linear)
+_OUT_SECOND = (nn.ConvTranspose2d, nn.Embedding)
 
-def infer_param_specs(params: Tree, mesh: Mesh, min_elems: int = 2**16
-                      ) -> Dict[str, Optional[int]]:
-    """Per leaf, the dimension it is sharded along over ``model`` (the
-    output feature, dim 0), or None where it is replicated: JAX's rule of
-    ``ndim >= 2``, ``size >= min_elems`` and a divisible output feature."""
-    model = mesh.model
 
-    def spec(x: torch.Tensor) -> Optional[int]:
-        if model > 1 and x.dim() >= 2 and x.numel() >= min_elems and x.shape[0] % model == 0:
-            return 0
-        return None
+def output_dims(model: nn.Module) -> Dict[str, int]:
+    """The output-feature dimension of each layer weight of ``model``, by
+    parameter name: 0 for ``Conv2d`` and ``Linear``, 1 for
+    ``ConvTranspose2d`` and ``Embedding``."""
+    out = {}
+    for name, m in model.named_modules():
+        if isinstance(m, _OUT_FIRST + _OUT_SECOND):
+            out[f"{name}.weight" if name else "weight"] = 0 if isinstance(m, _OUT_FIRST) else 1
+    return out
 
-    return {k: spec(x) for k, x in params.items()}
+
+def infer_param_specs(params: Tree, mesh: Mesh, min_elems: int = 2**16,
+                      model: Optional[nn.Module] = None) -> Dict[str, Optional[int]]:
+    """Per leaf, the dimension it is sharded along over ``model`` (its
+    output feature), or None where it is replicated: JAX's rule of ``ndim
+    >= 2``, ``size >= min_elems`` and a divisible output feature.  The
+    output feature is that of the layer of ``model`` owning the leaf
+    (:func:`output_dims`); without ``model`` it is dim 0, the ``Conv2d``
+    and ``Linear`` layout.  A leaf that would shard and is no layer's
+    weight of ``model`` raises."""
+    axis = mesh.model
+    dims = output_dims(model) if model is not None else None
+
+    def spec(name: str, x: torch.Tensor) -> Optional[int]:
+        if axis == 1 or x.dim() < 2 or x.numel() < min_elems:
+            return None
+        if dims is not None and name not in dims:
+            raise TypeError(f"{name}: no layer of the model gives its output feature")
+        d = 0 if dims is None else dims[name]
+        return d if x.shape[d] % axis == 0 else None
+
+    return {k: spec(k, x) for k, x in params.items()}
+
+
+def assemble_columns(y: torch.Tensor, full: int, dim: int,
+                     bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """A layer's whole output from ``y``, this rank's columns along
+    ``dim`` of its ``full`` output features: ``y`` zero-padded to the
+    full width at this rank's offset, summed over the active mesh's
+    ``model`` group by ``mesh.all_sum_diff`` (differentiable to any
+    order), plus ``bias`` (whole, broadcast along ``dim``).  The sum of
+    one value and zeros is exact in any dtype."""
+    mesh = meshlib.current()
+    if mesh is None:
+        raise RuntimeError("a layer holding a slice of its weight needs its mesh active")
+    dim %= y.dim()
+    per, c = y.shape[dim], mesh.model_coord
+    if per * mesh.model != full:
+        raise ValueError(f"{per} output columns a rank on a model axis of {mesh.model} "
+                         f"do not make {full}")
+    out = F.pad(y, [0, 0] * (y.dim() - 1 - dim) + [c * per, full - (c + 1) * per])
+    out = meshlib.all_sum_diff(out, "model")
+    if bias is None:
+        return out
+    return out + bias.reshape((-1,) + (1,) * (y.dim() - 1 - dim))
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -109,9 +169,10 @@ class Sharding:
 
     def gather(self, tree: Tree) -> Tree:
         """Full leaves for this rank's slices, in one all-reduce over the
-        ``model`` group of the zero-padded slices laid end to end
-        (``mesh.all_sum_diff``: autograd goes through it to any order
-        where the slices require grad); the other leaves as they are."""
+        ``model`` group of the zero-padded slices laid end to end (not
+        differentiated: the paths that take whole layers, K-FAC, the flat
+        solvers, the optimizers that step on whole layers, the
+        checkpoints); the other leaves as they are."""
         split = [k for k, t in tree.items() if self.is_local(k, t)]
         if not split:
             return tree
@@ -119,7 +180,7 @@ class Sharding:
         flat = torch.cat([p.reshape(-1) for p in padded])
         if meshlib.current() is None:
             raise RuntimeError("gathering sharded leaves needs their mesh active")
-        flat = meshlib.all_sum_diff(flat, "model")
+        flat = meshlib.all_sum(flat, "model")
         out, off = dict(tree), 0
         for k, p in zip(split, padded):
             out[k] = flat[off:off + p.numel()].view(p.shape)
@@ -145,24 +206,27 @@ class Sharded(dict):
         self.sharding = sharding
 
 
-def sharding_of(params: Tree, mesh: Mesh, min_elems: int = 2**16) -> Optional[Sharding]:
-    """The :class:`Sharding` of full ``params`` on ``mesh``; None where no
-    leaf shards."""
-    dims = {k: d for k, d in infer_param_specs(params, mesh, min_elems).items()
+def sharding_of(params: Tree, mesh: Mesh, min_elems: int = 2**16,
+                model: Optional[nn.Module] = None) -> Optional[Sharding]:
+    """The :class:`Sharding` of full ``params`` (of ``model``'s layers,
+    :func:`infer_param_specs`) on ``mesh``; None where no leaf shards."""
+    dims = {k: d for k, d in infer_param_specs(params, mesh, min_elems, model).items()
             if d is not None}
     if not dims:
         return None
     return Sharding(mesh=mesh, dims=dims, shapes={k: params[k].shape for k in dims})
 
 
-def shard_params(tree: Tree, mesh: Mesh, min_elems: int = 2**16) -> Tree:
+def shard_params(tree: Tree, mesh: Mesh, min_elems: int = 2**16,
+                 model: Optional[nn.Module] = None) -> Tree:
     """This rank's slices of a full params-shaped tree (the params, the
-    eigenvector, a moment of the optimizer) by :func:`infer_param_specs`,
-    as a :class:`Sharded` tree; a :class:`Sharded` tree comes back as it
-    is, and a tree with no leaf to shard too."""
+    eigenvector, a moment of the optimizer) of ``model``'s layers by
+    :func:`infer_param_specs`, as a :class:`Sharded` tree; a
+    :class:`Sharded` tree comes back as it is, and a tree with no leaf to
+    shard too."""
     if isinstance(tree, Sharded):
         return tree
-    sharding = sharding_of(tree, mesh, min_elems)
+    sharding = sharding_of(tree, mesh, min_elems, model)
     return tree if sharding is None else Sharded(sharding.local(tree), sharding)
 
 

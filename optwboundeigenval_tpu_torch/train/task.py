@@ -31,8 +31,10 @@ all-reduced over the ``data`` group (W-BCE's class counts too), so the
 shares of one rank per data coordinate sum to the one-device loss.
 ``loss_fn`` divides that share by the ``model`` axis, so that the sum over
 every rank is the loss (the reduction convention of ``parallel/mesh.py``).
-Under an active sharding (``parallel/sharding.py``) ``_apply``, the one
-place that calls the model, gathers the sharded leaves first.
+Under an active sharding (``parallel/sharding.py``) the model takes this
+rank's slices as they are: each sharded layer computes its own output
+columns and assembles the whole output over the ``model`` group
+(``models/layers.py``); no weight is gathered.
 """
 
 from __future__ import annotations
@@ -156,9 +158,6 @@ class Task:
         return params, state
 
     def _apply(self, params, model_state, x, train, stats_out=None, key=None):
-        sharding = meshlib.current_sharding()
-        if sharding is not None:
-            params = sharding.gather(params)
         with dropout.keyed(key if self.has_dropout else None):
             return functional_call(self.model, (params, model_state), (x,),
                                    {"train": train, "stats_out": stats_out})

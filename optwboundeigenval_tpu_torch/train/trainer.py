@@ -81,9 +81,10 @@ as it is:
   trainer keep this rank's slices of the large leaves: the
   params-shaped ``opt_state`` and ``v`` are cut to them too, the steps,
   epochs, eigensolvers, LOBPCG and evaluation run under that sharding
-  (the model gathers its weights, ``parallel/sharding.py``), optimizers
-  that work on whole layers (K-FAC, Entropy-SGD) step on the gathered
-  tree, and ``save``/``save_full`` write the gathered tree, so the files
+  (each sharded layer computes its own output columns,
+  ``parallel/sharding.py``), K-FAC's capture and the optimizers that
+  work on whole layers (K-FAC, Entropy-SGD) run on the gathered tree,
+  and ``save``/``save_full`` write the gathered tree, so the files
   equal one process's; ``resume`` and ``model_load`` cut them again.
 """
 
@@ -103,7 +104,7 @@ from optwboundeigenval_tpu_torch.models import dropout
 from optwboundeigenval_tpu_torch.ops import curvature, eigen, kfac, spectral
 from optwboundeigenval_tpu_torch.optim.api import Optimizer
 from optwboundeigenval_tpu_torch.parallel import mesh as meshlib
-from optwboundeigenval_tpu_torch.parallel.sharding import Sharded, gather_params
+from optwboundeigenval_tpu_torch.parallel.sharding import Sharded, gather_params, output_dims
 from optwboundeigenval_tpu_torch.train import checkpoints
 from optwboundeigenval_tpu_torch.train.task import Task
 from optwboundeigenval_tpu_torch.utils.precision import host
@@ -428,6 +429,11 @@ class SpectralTrainer:
         if sharding is not None and self._sharding is None:
             if self.mesh is None or sharding.mesh is not self.mesh:
                 raise ValueError("sharded params need the trainer's mesh")
+            dims = output_dims(self.task.model)
+            wrong = sorted(k for k, d in sharding.dims.items() if dims.get(k) != d)
+            if wrong:
+                raise ValueError(f"{wrong} are sharded along another dimension than their "
+                                 "layers' output feature: shard_params(..., model=model)")
             self._sharding = sharding
             self.opt_state = sharding.local(self.opt_state)
             if self.v is not None:
@@ -1112,7 +1118,7 @@ class SpectralTrainer:
         ``(B, crops, H, W, C)`` and gives the mean over its crops."""
         batch = self.put_batch(data)
         xb = batch["x"]
-        with meshlib.active(self.mesh, self._sharding):  # the gather of the weights
+        with meshlib.active(self.mesh, self._sharding):  # the sharded layers' columns
             if crops and xb.dim() == 5:
                 flat = {**batch, "x": xb.reshape((-1,) + tuple(xb.shape[2:]))}
                 out = self.task.predict(self.params, self.model_state, flat)
@@ -1134,8 +1140,12 @@ class SpectralTrainer:
         ``host_shard`` loader's batches are the rank's rows already; from
         a loader that gives every rank the same batches each rank of the
         world takes its stripe of ``ceil(B / ranks)`` rows, the tail
-        clamped and weighted 0.  Rows of weight 0 are dropped after the gather; the
-        outputs keep their dtype (JAX casts them to float32)."""
+        clamped and weighted 0.  Under a sharding the ranks of a ``model``
+        group compute one forward together, so the stripes are the data
+        coordinates' and the ``model`` replicas send ``w = 0``, as they
+        do from a ``host_shard`` loader.  Rows of weight 0 are dropped
+        after the gather; the outputs keep their dtype (JAX casts them to
+        float32)."""
         mesh = self.mesh
         counts = torch.tensor([len(loader)], device=mesh.device)
         counts = meshlib.all_gather_rows(counts, mesh).tolist()
@@ -1143,14 +1153,16 @@ class SpectralTrainer:
             raise ValueError(f"eval loaders yield unequal batch counts {counts} across "
                              "ranks; pad the dataset so every rank yields as many batches")
         sharded = getattr(loader, "host_shard", None) is not None
-        contributes = self._eval_is_contributor() if sharded else True
+        split = self._sharding is not None
+        contributes = self._eval_is_contributor() if sharded or split else True
+        parts, part = (mesh.data, mesh.data_coord) if split else (mesh.world, mesh.rank)
         for data in loader:
             w = np.asarray(data["w"], np.float32)
             data = dict(data)
             if not sharded:
                 n = len(w)
-                chunk = -(-n // mesh.world)
-                idx = np.arange(mesh.rank * chunk, (mesh.rank + 1) * chunk)
+                chunk = -(-n // parts)
+                idx = np.arange(part * chunk, (part + 1) * chunk)
                 valid = idx < n
                 idx = np.minimum(idx, n - 1)
                 data = {k: v[idx] for k, v in data.items()}

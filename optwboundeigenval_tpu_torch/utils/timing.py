@@ -1,18 +1,24 @@
-"""Host wall-clock stage timers (counterpart of
-``optwboundeigenval_tpu/utils/timing.py``, without its profiler hook).
+"""Host wall-clock stage timers and a profiler context (counterpart of
+``optwboundeigenval_tpu/utils/timing.py``).
 
 The reference prints stage times as "Time elapsed: Hh Mm Ss" lines
 (``timeHMS``, opt.py:230-235; per-epoch stage timers opt.py:745-757);
 the trainer appends ``Timers.report`` to its verbose log.  A timer reads
 the host clock around a stage: what the card still has queued at the
-stage's end is not in it.
+stage's end is not in it.  :func:`trace` is the JAX package's
+``jax.profiler`` context on ``torch.profiler``: a Chrome trace of the CPU
+and, on the card, CUDA activity.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
+import tempfile
 import time
-from typing import Dict
+from typing import Dict, Optional
+
+import torch
 
 
 def time_hms(t: float, head: str = "") -> str:
@@ -40,3 +46,19 @@ class Timers:
     def report(self, names=None) -> str:
         names = names or sorted(self.totals)
         return "\n".join(time_hms(self.totals.get(n, 0.0), f"{n} ") for n in names)
+
+
+@contextlib.contextmanager
+def trace(log_dir: Optional[str] = None):
+    """``torch.profiler`` over the block, its Chrome trace written to
+    ``log_dir`` (default ``<tempdir>/torch_trace``) as
+    ``<worker>.<time>.pt.trace.json`` when the block ends; yields
+    ``log_dir``.  CUDA activity is traced where the card is present."""
+    log_dir = log_dir or os.path.join(tempfile.gettempdir(), "torch_trace")
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(
+            activities=activities,
+            on_trace_ready=torch.profiler.tensorboard_trace_handler(log_dir)):
+        yield log_dir

@@ -22,9 +22,27 @@ the same scenarios with no mesh.  The tests then compare:
   params, and sharded ones) against one process and against the JAX
   package's single-process rows;
 * (vi) ``save_full`` from sharded ranks against one process's file, and a
-  ``resume`` that shards again.
+  ``resume`` that shards again;
+* (vii) the column split layer by layer on 2 ranks: ``Conv2d``,
+  ``Linear``, ``ConvTranspose2d``, ``Embedding`` and the gemm conv, each
+  holding a slice of its weight, against the whole layer in one process
+  (output, gradient, HVP, vGHv; rtol 1e-12);
+* (viii) the spectral step on a CXR-shaped model (a DenseNet trunk, the
+  1,024-channel transit conv and the classifier, every layer sharded)
+  and on a dropout DenseNet3, on both worlds: the gradient, HVP, vGHv
+  (plain, under remat, micro-batched through K1's plain version) and a
+  step's ``rho`` and update against one process (rtol 1e-12, scaled by
+  the tree's largest value) and, for the CXR model, against the JAX
+  package's ``shard_params`` run on the 8-device CPU mesh (rtol 1e-9;
+  the CXR model's micro-batched products there through the
+  ``hvp_micro=2`` step; the dropout model's plain products under flax's
+  masks);
+* (ix) the all-reduces of one forward of the CXR-shaped model: one over
+  the ``model`` group per sharded layer, of that layer's output size,
+  none of a weight's.
 """
 
+import contextlib
 import dataclasses
 import os
 import socket
@@ -38,8 +56,11 @@ import torch
 
 from optwboundeigenval_tpu_torch.data.loaders import ArrayLoader
 from optwboundeigenval_tpu_torch.data.synthetic import make_classification, make_images
-from optwboundeigenval_tpu_torch.models.cnn_usps import CNNUSPS
+from optwboundeigenval_tpu_torch.models import backbones, dropout
+from optwboundeigenval_tpu_torch.models.cnn_usps import CNNUSPS, gemm_conv3x3_same
+from optwboundeigenval_tpu_torch.models.cxr import CXRModel, TransitHead
 from optwboundeigenval_tpu_torch.models.densenet import DenseNet3
+from optwboundeigenval_tpu_torch.models.layers import Conv2d, ConvTranspose2d, Embedding, Linear
 from optwboundeigenval_tpu_torch.models.mlp_forest import ForestNet
 from optwboundeigenval_tpu_torch.ops import curvature, eigen
 from optwboundeigenval_tpu_torch.optim.api import sgd
@@ -50,7 +71,7 @@ from optwboundeigenval_tpu_torch.parallel.sharding import (
     sharding_of,
 )
 from optwboundeigenval_tpu_torch.train import checkpoints
-from optwboundeigenval_tpu_torch.train.task import Task
+from optwboundeigenval_tpu_torch.train.task import Task, losses
 from optwboundeigenval_tpu_torch.train.trainer import SpectralTrainer
 from optwboundeigenval_tpu_torch.utils.tree import tree_uniform_like
 
@@ -61,6 +82,8 @@ RTOL_ORDERS = 1e-12
 RTOL_RANKS = 1e-10
 RTOL_JAX = 1e-9
 MIN_ELEMS = 64
+CXR_ROWS, CXR_CLASSES = 8, 4
+DROPOUT_KEY = 5
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -328,6 +351,223 @@ def optimizers_and_audits(weights, mesh, tmp):
     return out
 
 
+class ToyCXR(torch.nn.Module):
+    """``CXRModel``'s layout at a toy size: a DenseNet trunk (blocks (2, 2),
+    growth 8, 16 initial features) and ``TransitHead``, its 1,024-channel
+    transit conv and the classifier to 4 classes."""
+
+    forward = CXRModel.forward
+
+    def __init__(self):
+        super().__init__()
+        self.features = backbones.DenseNetFeatures(block_config=(2, 2), growth_rate=8,
+                                                   num_init_features=16)
+        self.head = TransitHead(self.features.out_channels, CXR_CLASSES)
+
+
+class _Gemm(torch.nn.Module):
+    """CNNUSPS's gemm conv as a layer: a ``Conv2d``'s parameters through
+    ``gemm_conv3x3_same``."""
+
+    def __init__(self, cin, cout):
+        super().__init__()
+        self.conv = Conv2d(cin, cout, 3, padding=1)
+
+    def forward(self, x):
+        return gemm_conv3x3_same(x, self.conv.weight, self.conv.bias, self.conv.out_channels)
+
+
+class _Layer(torch.nn.Module):
+    """``layer`` behind a replicated per-channel scale of its input (so the
+    input's gradient, completed over the ranks, reaches a leaf)."""
+
+    def __init__(self, layer, channels=None, dim=1):
+        super().__init__()
+        self.layer, self.dim = layer, dim
+        self.pre = None if channels is None else torch.nn.Parameter(torch.ones(channels))
+
+    def forward(self, x):
+        if self.pre is not None:
+            x = torch.tanh(x * self.pre.reshape((-1,) + (1,) * (x.dim() - 1 - self.dim)))
+        return self.layer(x)
+
+
+def _layer_cases():
+    """name: (module, input)."""
+    g = torch.Generator().manual_seed(11)
+    x = lambda *shape: torch.randn(shape, generator=g, dtype=torch.float64)
+    return {
+        "conv2d": (_Layer(Conv2d(4, 6, 3, padding=1), 4), x(2, 4, 5, 5)),
+        "linear": (_Layer(Linear(5, 6), 5, -1), x(3, 5)),
+        "conv_transpose2d": (_Layer(ConvTranspose2d(4, 6, 2, stride=2), 4), x(2, 4, 3, 3)),
+        "embedding": (_Layer(Embedding(7, 6)), torch.randint(0, 7, (3, 4), generator=g)),
+        "gemm_conv": (_Layer(_Gemm(4, 6), 4), x(2, 4, 5, 5)),
+    }
+
+
+def layers(mesh):
+    """(vii) Each layer of ``_layer_cases`` with every weight sharded
+    (``min_elems=1``): its output, and the gradient, HVP and vGHv of
+    ``sum(c * sin(y))``, gathered; with the sharded leaves' local shapes."""
+    from torch.func import functional_call
+
+    out = {}
+    for name, (net, x) in _layer_cases().items():
+        net = net.double()
+        g = torch.Generator().manual_seed(12)
+        params = {k: torch.randn(p.shape, generator=g, dtype=torch.float64)
+                  for k, p in net.named_parameters()}
+        v = {k: torch.randn(t.shape, generator=g, dtype=torch.float64) for k, t in params.items()}
+        c = torch.randn(functional_call(net, params, (x,)).shape, generator=g,
+                        dtype=torch.float64)
+
+        def loss_fn(p, batch):
+            y = functional_call(net, p, (batch["x"],))
+            loss = (batch["c"] * torch.sin(y)).sum()
+            return loss if mesh is None else loss / mesh.model
+
+        sh = None
+        if mesh is not None:
+            sh = sharding_of(params, mesh, 1, net)
+            params, v = sh.local(params), sh.local(v)
+        batch = {"x": x, "c": c}
+        with meshlib.active(mesh, sh):
+            res = {"y": {"y": functional_call(net, params, (x,)).detach()},
+                   "grad": curvature.grad(loss_fn, params, batch),
+                   "hv": curvature.hvp(loss_fn, params, batch, v),
+                   "vghv": curvature.vghv(loss_fn, params, batch, v)}
+            if sh is not None:
+                res["local"] = {k: tuple(t.shape) for k, t in params.items()}
+                res = {k: t if k in ("y", "local") else sh.gather_tree(t) for k, t in res.items()}
+        out[name] = res
+    return out
+
+
+def _cxr_batch():
+    """The global batch of the CXR-shaped model: 8 rows at 32 px, 4
+    multi-label classes, the last row weighted 0."""
+    rng = np.random.default_rng(21)
+    x = rng.normal(size=(CXR_ROWS, 32, 32, 3))
+    y = (rng.random((CXR_ROWS, CXR_CLASSES)) < 0.4).astype(np.float64)
+    return _batch(x, y, [1.0] * (CXR_ROWS - 1) + [0.0])
+
+
+def _dropout_batch():
+    x, y = _images(CXR_ROWS, 22)
+    return _batch(x.astype(np.float64), y, np.ones(CXR_ROWS))
+
+
+def _micro_order(mesh, rows, micro=2):
+    """The order of the global batch's rows whose ``data`` shards hold the
+    one-process micro-batches: slice ``i`` of data coordinate ``d`` holds
+    the ``d``-th part of the global slice ``i``, so micro-batched BatchNorm
+    statistics and dropout masks are one process's (the identity with one
+    data coordinate)."""
+    if mesh is None or mesh.data == 1:
+        return np.arange(rows)
+    mb = rows // mesh.data // micro
+    return np.array([i * (rows // micro) + d * mb + j for d in range(mesh.data)
+                     for i in range(micro) for j in range(mb)])
+
+
+STEP = dict(mu=0.05, K=0.0, batch_size=CXR_ROWS, max_pow_iter=4, pow_iter_eps=1e-12,
+            ignore_bad_vals=False)
+STEP_LEGS = {"plain": {}, "remat": {"remat": True}, "micro": {"hvp_micro": 2}}
+SPECTRAL_PARTS = ("grad", "hv", "vghv", "remat_grad", "remat_hv", "micro_grad", "micro_hv",
+                  "micro_vghv")
+
+
+def _spectral_task(name, weights):
+    if name == "cxr":
+        return _Given(model=ToyCXR().double(), loss=losses["weighted_bce_with_logits"],
+                      has_batch_stats=True, weights=weights["cxr"]), _cxr_batch()
+    return (_Given(model=_dropout_densenet(), has_batch_stats=True, has_dropout=True,
+                   weights=weights["densenet"]), _dropout_batch())
+
+
+def _dropout_densenet():
+    return DenseNet3(depth=10, growth_rate=4, num_classes=4, drop_rate=0.2).double()
+
+
+def spectral(weights, mesh, tmp):
+    """(viii) The CXR-shaped model and a dropout DenseNet3 with every layer
+    sharded (``min_elems=64``): the curvature products, plain, remat and
+    with 2 micro-batches, gathered (the dropout model's under flax's masks
+    of ``DROPOUT_KEY`` where the weights carry them), and one
+    ``train_step`` a leg (plain, ``remat``, ``hvp_micro=2``; the trainer's
+    own masks): its ``rho`` and the update of the gathered params."""
+    out = {}
+    for name in ("cxr", "dropout"):
+        task, glob = _spectral_task(name, weights)
+        params, state = task.init(None, "cpu")
+        p0 = {k: t.clone() for k, t in params.items()}
+        key = DROPOUT_KEY if task.has_dropout else None
+        v = weights[f"{name}_v"]
+        table = weights.get("dropout_masks") if task.has_dropout else None
+        masks = (dropout.inject(lambda _key, site, shape: table[(site, shape)]) if table
+                 else contextlib.nullcontext())
+
+        def local(micro):
+            if mesh is None:
+                return glob
+            order = _micro_order(mesh, CXR_ROWS) if micro else np.arange(CXR_ROWS)
+            return meshlib.shard_batch({k: t[order] for k, t in glob.items()}, mesh)
+
+        b, bm = local(False), local(True)
+        sh = None
+        if mesh is not None:
+            sh = sharding_of(params, mesh, MIN_ELEMS, task.model)
+            params, v = sh.local(params), sh.local(v)
+        loss_fn = task.loss_fn(state, key)
+        with meshlib.active(mesh, sh), masks:
+            res = {"grad": curvature.grad(loss_fn, params, b),
+                   "hv": curvature.hvp(loss_fn, params, b, v),
+                   "vghv": curvature.vghv(loss_fn, params, b, v)}
+            res["remat_grad"], hvp_fn = curvature.recompute_hvp(loss_fn, params, b)
+            res["remat_hv"] = hvp_fn(v)
+            res["micro_grad"] = curvature.grad_microbatched(loss_fn, params, bm, 2)
+            res["micro_hv"] = curvature.hvp_microbatched(loss_fn, params, bm, v, 2)
+            res["micro_vghv"] = curvature.vghv_microbatched(loss_fn, params, bm, v, 2)
+            if sh is not None:
+                res = {k: sh.gather_tree(t) for k, t in res.items()}
+        for leg, kw in STEP_LEGS.items():
+            tr = _trainer(task, mesh, tmp, f"SPEC{name}{leg}", seed=9, **STEP, **kw)
+            tr.init_state()
+            if mesh is not None:
+                tr.params = shard_params(tr.params, mesh, MIN_ELEMS, task.model)
+                tr.v = shard_params(tr.v, mesh, MIN_ELEMS, task.model)
+            m = tr.train_step(bm if kw.get("hvp_micro") else b)
+            full = tr._full(tr.params)
+            res[f"step_{leg}"] = {"rho": m["rho"], "pow_iters": m["pow_iters"],
+                                  "update": {k: full[k] - p0[k] for k in p0}}
+        out[name] = res
+    return out
+
+
+def forward_reduces(weights, mesh):
+    """(ix) ``(values, over the model group)`` of every all-reduce of one
+    eval-mode forward of the CXR-shaped model on this rank's rows, every
+    layer sharded."""
+    task, glob = _spectral_task("cxr", weights)
+    params, state = task.init(None, "cpu")
+    sh = sharding_of(params, mesh, MIN_ELEMS, task.model)
+    params = sh.local(params)
+    calls = []
+    real = torch.distributed.all_reduce
+
+    def counting(t, *args, **kwargs):
+        calls.append((t.numel(), kwargs.get("group") is mesh.model_group))
+        return real(t, *args, **kwargs)
+
+    torch.distributed.all_reduce = counting
+    try:
+        with meshlib.active(mesh, sh):
+            task.predict(params, state, meshlib.shard_batch(glob, mesh))
+    finally:
+        torch.distributed.all_reduce = real
+    return calls
+
+
 def scenarios(weights, mesh, tmp, world):
     """The scenarios of a world on this rank (``mesh``) or one process."""
     out = {}
@@ -335,11 +575,15 @@ def scenarios(weights, mesh, tmp, world):
         out["orders"] = orders(weights, mesh)
         out["save_resume"] = save_resume(weights, mesh, os.path.join(tmp, "sr"))
         out["optimizers"] = optimizers_and_audits(weights, mesh, os.path.join(tmp, "opt"))
+        out["layers"] = layers(mesh)
     if world in (None, 4):
         out["eigensolve"] = eigensolve(weights, mesh)
         out["dryrun"] = dryrun(mesh, os.path.join(tmp, "dry"))
         out["loop"] = loop(weights, mesh, os.path.join(tmp, "loop"))
         out["loop_sharded"] = loop(weights, mesh, os.path.join(tmp, "loops"), MIN_ELEMS)
+    out["spectral"] = spectral(weights, mesh, os.path.join(tmp, "spectral"))
+    if mesh is not None:
+        out["reduces"] = forward_reduces(weights, mesh)
     return out
 
 
@@ -368,7 +612,91 @@ def _jax_weights():
                                     dtype=jnp.float64), has_batch_stats=True).init(
         jax.random.PRNGKey(0), jnp.zeros((1, 32, 32, 3)))
     port_w["densenet"] = interop.densenet3_from_jax(*f64((pd, sd["batch_stats"])))
+    rng = np.random.default_rng(23)
+    v = jax.tree.map(lambda a: rng.normal(size=a.shape), f64(pd))
+    jax_w["dropout"] = (f64(pd), f64(sd["batch_stats"]), v)
+    port_w["dropout_v"] = interop.densenet3_from_jax(v, f64(sd["batch_stats"]))[0]
+    port_w["dropout_masks"] = _flax_masks(*jax_w["dropout"][:2])
+    p, s, v = _jax_cxr_vars()
+    jax_w["cxr"], jax_w["cxr_v"] = (p, s), v
+    port_w["cxr"] = interop.from_jax(ToyCXR().double(), p, s)
+    port_w["cxr_v"] = interop.from_jax(ToyCXR().double(), v, s)[0]
     return jax_w, port_w
+
+
+def _jax_dropout_densenet():
+    import jax.numpy as jnp
+
+    from optwboundeigenval_tpu.models.densenet import DenseNet3 as JDenseNet3
+
+    return JDenseNet3(depth=10, growth_rate=4, num_classes=4, drop_rate=0.2,
+                      dtype=jnp.float64)
+
+
+def _flax_masks(params, stats):
+    """``{(site, shape): keep mask}``: the masks flax's dropout layers draw
+    under ``DROPOUT_KEY`` on the dropout batch and on a micro-batch of it
+    (they depend on the key and the shape only), for ``dropout.inject``."""
+    import jax
+
+    from test_torch_dropout import flax_masks
+
+    sites = dropout.sites(_dropout_densenet())
+    x = _dropout_batch()["x"].numpy()
+    table = {}
+    for rows in (x, x[:CXR_ROWS // 2]):
+        masks = flax_masks(_jax_dropout_densenet(), {"params": params, "batch_stats": stats},
+                           rows, jax.random.PRNGKey(DROPOUT_KEY))
+        for site, m in zip(sites, masks):
+            table[(site, m.shape)] = torch.tensor(m)
+    return table
+
+
+def _jax_toy_cxr():
+    """The JAX package's ``CXRModel`` composition at ``ToyCXR``'s size."""
+    import flax.linen as fnn
+    import jax.numpy as jnp
+
+    from optwboundeigenval_tpu.models import backbones as jbb
+    from optwboundeigenval_tpu.models.cxr import TransitHead as JTransitHead
+
+    class JToyCXR(fnn.Module):
+        def setup(self):
+            self.features = jbb.DenseNetFeatures(block_config=(2, 2), growth_rate=8,
+                                                 num_init_features=16, dtype=jnp.float64)
+            self.head = JTransitHead(CXR_CLASSES, jnp.float64)
+
+        def __call__(self, x, train=False):
+            return self.head(self.features(x, train), train)
+
+    return JToyCXR()
+
+
+def _jax_cxr_vars(seed=3):
+    """float64 flax variables of the toy CXR model and a vector ``v`` in
+    its layout: kernels ``N(0, 1 / fan_in)``, biases ``N(0, 0.01)``,
+    BatchNorm scales ``1 + N(0, 0.01)``, running means in ``[0.1, 0.5)``
+    and variances in ``[1.1, 1.5)``; ``v`` standard normal."""
+    import jax
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(seed)
+    shapes = jax.eval_shape(
+        lambda x: _jax_toy_cxr().init(jax.random.PRNGKey(0), x, train=False),
+        jax.ShapeDtypeStruct((1, 32, 32, 3), jnp.float64))
+
+    def draw(path, leaf):
+        name, shape = path[-1].key, leaf.shape
+        if name == "kernel":
+            return rng.normal(size=shape) / np.sqrt(np.prod(shape[:-1]))
+        if name in ("bias", "scale"):
+            return (name == "scale") + 0.1 * rng.normal(size=shape)
+        return (name == "var") + rng.uniform(0.1, 0.5, size=shape)
+
+    p = jax.tree_util.tree_map_with_path(draw, shapes["params"])
+    s = jax.tree_util.tree_map_with_path(draw, shapes["batch_stats"])
+    v = jax.tree.map(lambda a: rng.normal(size=a.shape), p)
+    return p, s, v
 
 
 def _free_port() -> int:
@@ -432,21 +760,39 @@ def _close_state(got, want, rtol, what):
 # (i) ---------------------------------------------------------------------------
 
 def _spec_models():
+    """name: (JAX module, port module, the JAX init's inputs, min_elems)."""
     import jax.numpy as jnp
 
     from optwboundeigenval_tpu.models import CNNUSPS as JCNNUSPS, ForestNet as JForestNet
+    from optwboundeigenval_tpu.models import gan as jgan
     from optwboundeigenval_tpu.models.densenet import DenseNet3 as JDenseNet3
+    from optwboundeigenval_tpu_torch.models import gan
 
+    labels = np.zeros(1, np.int32)
     return {
         "forest": (JForestNet(hidden=16, num_classes=7, dtype=jnp.float64),
-                   ForestNet(hidden=16), (1, 54), 64),
-        "cnnusps_lax": (JCNNUSPS(dtype=jnp.float64), CNNUSPS(), (1, 16, 16, 1), 1024),
+                   ForestNet(hidden=16), (np.zeros((1, 54)),), 64),
+        "cnnusps_lax": (JCNNUSPS(dtype=jnp.float64), CNNUSPS(),
+                        (np.zeros((1, 16, 16, 1)),), 1024),
         "cnnusps_gemm": (JCNNUSPS(dtype=jnp.float64, conv_impl="gemm"),
-                         CNNUSPS(conv_impl="gemm"), (1, 16, 16, 1), 1024),
+                         CNNUSPS(conv_impl="gemm"), (np.zeros((1, 16, 16, 1)),), 1024),
         "densenet3": (JDenseNet3(depth=10, growth_rate=12, num_classes=10,
                                  dtype=jnp.float64),
-                      DenseNet3(depth=10, growth_rate=12, num_classes=10), (1, 32, 32, 3),
-                      1024),
+                      DenseNet3(depth=10, growth_rate=12, num_classes=10),
+                      (np.zeros((1, 32, 32, 3)),), 1024),
+        "cxr": (_jax_toy_cxr(), ToyCXR(), (np.zeros((1, 32, 32, 3)),), MIN_ELEMS),
+        "mlp_generator": (jgan.MLPGenerator(n=4, latent_dim=8, dtype=jnp.float64),
+                          gan.MLPGenerator(latent_dim=8, n=4),
+                          (np.zeros((1, 8)), labels), MIN_ELEMS),
+        "mlp_discriminator": (jgan.MLPDiscriminator(n=4, dtype=jnp.float64),
+                              gan.MLPDiscriminator(n=4),
+                              (np.zeros((1, 16, 16, 1)), labels), MIN_ELEMS),
+        "dc_generator": (jgan.DCGenerator(latent_dim=8, feat=4, dtype=jnp.float64),
+                         gan.DCGenerator(latent_dim=8, feat=4),
+                         (np.zeros((1, 8)), labels), MIN_ELEMS),
+        "dc_discriminator": (jgan.DCDiscriminator(feat=4, dtype=jnp.float64),
+                             gan.DCDiscriminator(feat=4),
+                             (np.zeros((1, 32, 32, 1)), labels), MIN_ELEMS),
     }
 
 
@@ -460,24 +806,33 @@ def _from_jax(model, params, batch_stats):
     return interop.from_jax(model, params, batch_stats)[0]
 
 
-@pytest.mark.parametrize("name", ["forest", "cnnusps_lax", "cnnusps_gemm", "densenet3"])
+SPEC_MODELS = ["forest", "cnnusps_lax", "cnnusps_gemm", "densenet3", "cxr", "mlp_generator",
+               "mlp_discriminator", "dc_generator", "dc_discriminator"]
+
+
+@pytest.mark.parametrize("name", SPEC_MODELS)
 def test_infer_param_specs_match_jax_through_interop(eight_devices, name):
     """The port shards the leaves JAX shards, along the dimension that
     ``utils/interop.py`` maps JAX's trailing (output-feature) dimension
-    to: every kernel filled with its trailing index comes out of the
-    interop map constant along all but dim 0, which holds that index."""
+    to: every kernel and embedding filled with its trailing index comes
+    out of the interop map constant along all but its layer's output
+    dimension (dim 0 of a conv or dense weight, dim 1 of a transposed
+    conv or embedding weight), which holds that index."""
     import jax
-    import jax.numpy as jnp
     from jax.sharding import PartitionSpec as P
 
     from optwboundeigenval_tpu.parallel import make_mesh as jmake_mesh
     from optwboundeigenval_tpu.parallel.sharding import infer_param_specs as jspecs
+    from optwboundeigenval_tpu_torch.parallel.sharding import output_dims
     from optwboundeigenval_tpu_torch.utils import interop
 
-    jmodel, model, shape, min_elems = _spec_models()[name]
-    variables = jmodel.init(jax.random.PRNGKey(0), jnp.zeros(shape), train=False)
-    params = jax.tree.map(np.asarray, variables["params"])
-    stats = jax.tree.map(np.asarray, variables.get("batch_stats", {}))
+    jmodel, model, inputs, min_elems = _spec_models()[name]
+    # only the shapes: every kernel's values are its trailing index below
+    variables = jax.eval_shape(lambda: jmodel.init(
+        {"params": jax.random.PRNGKey(0), "dropout": jax.random.PRNGKey(1)}, *inputs,
+        train=False))
+    zeros = lambda tree: jax.tree.map(lambda a: np.zeros(a.shape, np.float64), tree)
+    params, stats = zeros(variables["params"]), zeros(variables.get("batch_stats", {}))
     specs = interop.flatten(jspecs(params, jmake_mesh(data=4, model=2), min_elems))
     # JAX's trailing index, through the interop map
     indexed = jax.tree.map(lambda a: np.broadcast_to(
@@ -485,19 +840,22 @@ def test_infer_param_specs_match_jax_through_interop(eight_devices, name):
         params)
     port = _from_jax(model, indexed, stats)
     names = interop.module_names(model)
+    dims = output_dims(model)
     mesh = meshlib.Mesh(device=torch.device("cpu"), data=4, model=2, rank=0)
-    ours = infer_param_specs(port, mesh, min_elems)
+    ours = infer_param_specs(port, mesh, min_elems, model)
     want = {}
     for path, spec in specs.items():
         scope, leaf = path.rsplit("/", 1)
-        if leaf != "kernel":
+        if leaf not in ("kernel", "embedding"):
             assert spec == P(), path
             continue
         key = f"{names[scope]}.weight"
-        want[key] = 0 if spec == P(*([None] * (port[key].dim() - 1)), "model") else None
-        t = port[key]
-        index = torch.arange(t.shape[0], dtype=t.dtype).reshape((-1,) + (1,) * (t.dim() - 1))
-        assert torch.equal(t, index.expand_as(t)), f"{key}: JAX's trailing dim is not dim 0"
+        t, d = port[key], dims[key]
+        want[key] = d if spec == P(*([None] * (t.dim() - 1)), "model") else None
+        shape = [1] * t.dim()
+        shape[d] = -1
+        index = torch.arange(t.shape[d], dtype=t.dtype).reshape(shape)
+        assert torch.equal(t, index.expand_as(t)), f"{key}: JAX's trailing dim is not dim {d}"
     assert {k: d for k, d in ours.items() if d is not None} == {
         k: d for k, d in want.items() if d is not None}
     assert any(d is not None for d in ours.values())
@@ -695,6 +1053,237 @@ def test_save_full_from_sharded_ranks_and_resume(worlds):
         assert got["trace_shapes"]["fc1.weight"] == (8, 10)
         assert got["trace_shapes"]["fc1.bias"] == (16,)
         _close_state(got["resumed"], want["resumed"], RTOL_RANKS, f"rank {r} resumed")
+
+
+# (vii) -------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", list(_layer_cases()))
+def test_layer_computes_its_own_columns(worlds, name):
+    """2 ranks, data=1 x model=2, each layer holding half of its weight's
+    output features: the output, the gradient, the HVP and the vGHv equal
+    the whole layer's in one process at rtol 1e-12."""
+    _, one, ranks = worlds
+    want = one["layers"][name]
+    for r, res in enumerate(ranks[2]):
+        got = res["layers"][name]
+        assert got["local"]["layer.weight" if name != "gemm_conv" else "layer.conv.weight"][
+            1 if name in ("conv_transpose2d", "embedding") else 0] == 3
+        for part in ("y", "grad", "hv", "vghv"):
+            _close_tree(got[part], want[part], RTOL_ORDERS, f"rank {r} {name} {part}")
+
+
+def test_a_slice_needs_its_mesh_and_a_layer_that_splits():
+    """Outside an active mesh a sliced weight raises, as it does in a layer
+    that cannot split (a grouped conv); nothing falls back."""
+    from torch.func import functional_call
+
+    conv = Conv2d(4, 6, 3).double()
+    half = {"weight": conv.weight[:3].detach(), "bias": conv.bias.detach()}
+    with pytest.raises(RuntimeError, match="mesh active"):
+        functional_call(conv, half, (torch.zeros(1, 4, 5, 5, dtype=torch.float64),))
+    grouped = Conv2d(4, 6, 3, groups=2).double()
+    half = {"weight": grouped.weight[:3].detach(), "bias": grouped.bias.detach()}
+    with pytest.raises(ValueError, match="cannot compute"):
+        functional_call(grouped, half, (torch.zeros(1, 4, 5, 5, dtype=torch.float64),))
+
+
+def test_trainer_refuses_leaves_sharded_along_another_dim(tmp_path):
+    """``shard_params`` without the model takes dim 0, which is not a
+    transposed conv's output feature: the trainer refuses it, and takes
+    the shards of ``shard_params(..., model=...)``."""
+    from optwboundeigenval_tpu_torch.models.gan import DCGenerator
+
+    mesh = meshlib.Mesh(device=torch.device("cpu"), data=1, model=2, rank=1)
+    model = DCGenerator(latent_dim=8, feat=4)
+    tr = _trainer(Task(model=model), mesh, str(tmp_path), "DIMS")
+    tr.init_state()
+    with pytest.raises(ValueError, match="output feature"):
+        tr.params = shard_params(tr.params, mesh, 64)
+    tr.params = shard_params(tr.params, mesh, 64, model)
+    assert tr._sharding.dims == {"label_emb.weight": 1, "deconv.0.weight": 1,
+                                 "deconv.1.weight": 1, "deconv.2.weight": 1}
+    assert tr.params["deconv.0.weight"].shape == (8, 8, 4, 4)
+
+
+# (viii) ------------------------------------------------------------------------
+
+def _close_scaled(got, want, rtol, what):
+    """Leaf by leaf to ``rtol``, with an absolute floor of ``rtol`` times the
+    tree's largest value: a conv bias ahead of a BatchNorm has a zero
+    gradient, which float64 leaves at rounding level."""
+    assert sorted(got) == sorted(want), what
+    scale = max(float(t.abs().max()) for t in want.values())
+    for k, t in want.items():
+        np.testing.assert_allclose(np.asarray(got[k], np.float64), np.asarray(t, np.float64),
+                                   rtol=rtol, atol=rtol * scale, err_msg=f"{what} {k}")
+
+
+@pytest.mark.parametrize("world", list(WORLDS))
+@pytest.mark.parametrize("model", ["cxr", "dropout"])
+def test_column_split_spectral_step_matches_one_process(worlds, world, model):
+    """Every layer of the CXR-shaped model (BatchNorm) and of a dropout
+    DenseNet3 sharded: the gradient, HVP and vGHv (plain, remat, 2
+    micro-batches through K1's plain version) and a step's ``rho`` and
+    update of each leg equal one process's, on data=1 x model=2 and
+    data=2 x model=2."""
+    _, one, ranks = worlds
+    want = one["spectral"][model]
+    for r, res in enumerate(ranks[world]):
+        got = res["spectral"][model]
+        for part in SPECTRAL_PARTS:
+            _close_scaled(got[part], want[part], RTOL_ORDERS, f"w{world} rank {r} {part}")
+        for leg in STEP_LEGS:
+            g, w = got[f"step_{leg}"], want[f"step_{leg}"]
+            assert g["pow_iters"] == w["pow_iters"] == STEP["max_pow_iter"]
+            _close(g["rho"], w["rho"], RTOL_ORDERS, f"w{world} rank {r} {leg} rho")
+            _close_scaled(g["update"], w["update"], RTOL_ORDERS, f"w{world} rank {r} {leg}")
+
+
+@pytest.fixture(scope="module")
+def jax_cxr(worlds, eight_devices, tmp_path_factory):
+    """The JAX package's run of the toy CXR model with ``shard_params`` on
+    the 8-device CPU mesh (data=4 x model=2, tests/test_parallel.py:77):
+    the gradient, HVP and vGHv and a ``train_step`` (plain, and
+    ``hvp_micro=2``, whose update carries the micro-batched gradient,
+    HVPs and vGHv) in the port's layout."""
+    import jax
+    import jax.numpy as jnp
+
+    from optwboundeigenval_tpu.ops import curvature as jcurv
+    from optwboundeigenval_tpu.optim import sgd as jsgd
+    from optwboundeigenval_tpu.parallel import make_mesh as jmake_mesh
+    from optwboundeigenval_tpu.parallel import shard_batch as jshard_batch
+    from optwboundeigenval_tpu.parallel import shard_params as jshard_params
+    from optwboundeigenval_tpu.train import SpectralTrainer as JTrainer
+    from optwboundeigenval_tpu.train.task import Task as JTask
+    from optwboundeigenval_tpu.train.task import losses as jlosses
+    from optwboundeigenval_tpu_torch.utils import interop
+
+    jax_w, _, _ = worlds
+    (p, s), v = jax_w["cxr"], jax_w["cxr_v"]
+    mesh = jmake_mesh(data=4, model=2)
+    task = JTask(model=_jax_toy_cxr(), loss=jlosses["weighted_bce_with_logits"],
+                 has_batch_stats=True)
+    batch = {k: t.numpy() for k, t in _cxr_batch().items()}
+    loss = task.loss_fn({"batch_stats": s})
+    pt, vt = jshard_params(p, mesh, MIN_ELEMS), jshard_params(v, mesh, MIN_ELEMS)
+    bt = jshard_batch({k: jnp.asarray(t) for k, t in batch.items()}, mesh)
+    port = lambda tree: interop.from_jax(ToyCXR().double(), jax.tree.map(np.asarray, tree),
+                                         s)[0]
+    out = {}
+    for name, fn, args in (("grad", jcurv.grad, ()), ("hv", jcurv.hvp, (vt,)),
+                           ("vghv", jcurv.vghv, (vt,))):
+        out[name] = port(jax.jit(fn, static_argnums=0)(loss, pt, bt, *args))
+    tmp = str(tmp_path_factory.mktemp("jax_cxr"))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(JTask, "init", lambda self, rng, x: (p, {"batch_stats": s}))
+        for leg, micro in (("plain", 0), ("micro", 2)):
+            tr = JTrainer(task, jsgd(0.1), mesh=mesh, hvp_micro=micro, header=f"J{leg}",
+                          log_dir=tmp, model_dir=tmp, **STEP)
+            tr.init_state(batch)
+            tr.params = jshard_params(tr.params, mesh, MIN_ELEMS)
+            tr.v = jshard_params(tr.v, mesh, MIN_ELEMS)
+            m = tr.train_step(batch)
+            after = jax.tree.map(lambda a, b: np.asarray(a) - b, tr.params, p)
+            out[f"step_{leg}"] = {"rho": float(m["rho"]), "update": port(after)}
+    return out
+
+
+@pytest.mark.parametrize("world", [None] + list(WORLDS))
+def test_column_split_cxr_matches_jax_shard_params(worlds, jax_cxr, world):
+    """The toy CXR model on one process and on each rank of both worlds
+    against the JAX package's tensor-parallel run (rtol 1e-9): its
+    gradient, HVP and vGHv, the remat forms against the plain ones, and
+    the plain, remat and micro-batched steps' ``rho`` and update."""
+    _, one, ranks = worlds
+    runs = [one] if world is None else ranks[world]
+    for r, res in enumerate(runs):
+        got, what = res["spectral"]["cxr"], f"world {world} rank {r}"
+        for part in SPECTRAL_PARTS:
+            if part.startswith("micro"):
+                continue
+            want = jax_cxr[part.replace("remat_", "")]
+            _close_scaled(got[part], want, RTOL_JAX, f"{what} {part}")
+        for leg in STEP_LEGS:
+            want = jax_cxr["step_micro" if leg == "micro" else "step_plain"]
+            _close(got[f"step_{leg}"]["rho"], want["rho"], RTOL_JAX, f"{what} {leg} rho")
+            _close_scaled(got[f"step_{leg}"]["update"], want["update"], RTOL_JAX,
+                          f"{what} {leg} update")
+
+
+@pytest.fixture(scope="module")
+def jax_dropout(worlds, eight_devices):
+    """The JAX package's products of the dropout DenseNet3 under
+    ``DROPOUT_KEY`` with ``shard_params`` on the 8-device CPU mesh
+    (data=4 x model=2): gradient, HVP and vGHv in the port's layout."""
+    import jax
+    import jax.numpy as jnp
+
+    from optwboundeigenval_tpu.ops import curvature as jcurv
+    from optwboundeigenval_tpu.parallel import make_mesh as jmake_mesh
+    from optwboundeigenval_tpu.parallel import shard_batch as jshard_batch
+    from optwboundeigenval_tpu.parallel import shard_params as jshard_params
+    from optwboundeigenval_tpu.train.task import Task as JTask
+    from optwboundeigenval_tpu_torch.utils import interop
+
+    jax_w, _, _ = worlds
+    p, stats, v = jax_w["dropout"]
+    mesh = jmake_mesh(data=4, model=2)
+    task = JTask(model=_jax_dropout_densenet(), has_batch_stats=True, has_dropout=True)
+    loss = task.loss_fn({"batch_stats": stats}, jax.random.PRNGKey(DROPOUT_KEY))
+    pt, vt = jshard_params(p, mesh, MIN_ELEMS), jshard_params(v, mesh, MIN_ELEMS)
+    bt = jshard_batch({k: jnp.asarray(t.numpy()) for k, t in _dropout_batch().items()}, mesh)
+    out = {}
+    for name, fn, args in (("grad", jcurv.grad, ()), ("hv", jcurv.hvp, (vt,)),
+                           ("vghv", jcurv.vghv, (vt,))):
+        tree = jax.jit(fn, static_argnums=0)(loss, pt, bt, *args)
+        out[name] = interop.densenet3_from_jax(jax.tree.map(np.asarray, tree), stats)[0]
+    return out
+
+
+@pytest.mark.parametrize("world", [None] + list(WORLDS))
+def test_column_split_dropout_matches_jax_shard_params(worlds, jax_dropout, world):
+    """The dropout DenseNet3 under flax's masks, on one process and on each
+    rank of both worlds, against the JAX package's tensor-parallel
+    products (rtol 1e-9): gradient, HVP and vGHv, plain and remat (the
+    micro-batched ones are held to one process's)."""
+    _, one, ranks = worlds
+    runs = [one] if world is None else ranks[world]
+    for r, res in enumerate(runs):
+        got = res["spectral"]["dropout"]
+        for part in SPECTRAL_PARTS:
+            if part.startswith("micro"):
+                continue
+            _close_scaled(got[part], jax_dropout[part.replace("remat_", "")], RTOL_JAX,
+                          f"world {world} rank {r} {part}")
+
+
+# (ix) --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("world", list(WORLDS))
+def test_forward_all_reduces_one_per_sharded_layer(worlds, world):
+    """No weight is gathered: an eval-mode forward of the CXR-shaped model
+    on sharded params all-reduces once per sharded layer over the
+    ``model`` group, that layer's output on the rank's rows, in the
+    layers' order, and nothing else (a gather of the weights would be
+    one all-reduce of all their values)."""
+    _, _, ranks = worlds
+    model = ToyCXR().double()
+    params = {k: t.detach() for k, t in model.named_parameters()}
+    sizes = []
+    hooks = [m.register_forward_hook(lambda m, i, o: sizes.append(o.numel()))
+             for m in model.modules() if isinstance(m, (Conv2d, Linear))]
+    try:
+        Task(model=model).predict(params, dict(model.named_buffers()), _cxr_batch())
+    finally:
+        for h in hooks:
+            h.remove()
+    data = WORLDS[world][0]
+    want = [n // data for n in sizes]
+    gather = sum(t.numel() for t in params.values() if t.dim() >= 2)  # one gather's values
+    assert len(want) == 12 and gather not in want
+    for r, res in enumerate(ranks[world]):
+        assert res["reduces"] == [(n, True) for n in want], f"rank {r}"
 
 
 if __name__ == "__main__":  # one rank of the ``worlds`` fixture
