@@ -18,18 +18,22 @@ Phases (any failure exits non-zero and prints no result line):
 4. the spectral step: the ``cifar10_densenet_mu0_01_K0`` recipe
    (DenseNet-40-12 on CIFAR-10, full width, batch 32) with
    ``remat=False, hvp_micro=2, augment=False``, built through the config
-   driver and run for 5 ``train_step``s; each step must launch K1 once per
-   micro-batched accumulate, ``(pow_iters + 2) * hvp_micro`` times;
+   driver and run for 3 ``train_step``s (5 before the time budget); each
+   step must launch K1 once per micro-batched accumulate, ``(pow_iters +
+   2) * hvp_micro`` times;
 5. one more step under ``torch.profiler``: the device's busy share and
    the kernels that take the time (also after the runs of phases 7, 8, 10
    and 11, on a step of each);
-6. the card against the CPU: HVP and vGHv at the trained weights,
+6. the card against the CPU: HVP and vGHv at the trained weights on the
+   first 8 rows of the step's batch (32 before the time budget),
    micro-batched through K1 in float32 and float64, and float64 on the
    first micro-batch, on the card vs float64 with the port on the CPU;
 7. the training run through ``driver.run``, as ``main`` drives it:
-   ``forest_best`` and ``usps_cnn_mu0_01_K0`` at full width on their full
+   ``forest_best`` and ``usps_cnn_mu0_01_K0`` at full width on their
    synthetic stand-ins (Forest 12,800 / 3,200 / 4,000 rows, USPS 6,250 /
-   1,041 / 2,007, batch 128), 2 epochs with ``rho_test``, logs and
+   1,041 / 2,007, batch 128), the train sets cut to their first 3,200 and
+   2,048 rows (a cut for time), one epoch (2 before the time budget) with
+   ``rho_test``, logs and
    checkpoints in a temporary directory; the TSV rows, test lines and
    ``rho_test`` means must be finite and the best checkpoint must load
    back to the trained tensors;
@@ -43,7 +47,8 @@ Phases (any failure exits non-zero and prints no result line):
 9. the cached HVP (``curvature.linearize_hvp``) against the closure
    (``curvature.hvp``) for ForestNet, CNNUSPS (batch 128) and DenseNet-40
    (batch 32): float64 on the card vs the CPU's float64 closure, and the
-   set-up and per-HVP times of both on the card, beside one vGHv pass;
+   set-up and per-HVP times of both on the card (5 calls each; 20 before
+   the time budget), beside one vGHv pass;
 10. the published DenseNet-40 recipe: ``cifar10_densenet_mu0_01_K0`` with
     no override but ``max_iter=1`` (augmentation, ``remat``,
     ``defer_metrics``, power iteration at ``pow_iter_eps`` 0.05) through
@@ -53,24 +58,27 @@ Phases (any failure exits non-zero and prints no result line):
     ``pow_iters``, host ms of augmentation per batch and peak device
     memory of each; the memory of one step's curvature passes with remat
     on and off (remat's HVP map must hold less between products, and its
-    eigensolve peak lower); a float64 ``train_step`` from one state with remat on
-    and off on the card and with remat on the CPU, which must agree; and 2
-    steps with ``hvp_micro=2`` under remat, K1 launching ``hvp_micro *
-    (pow_iters + 2)`` times a step;
+    eigensolve peak lower); a float64 ``train_step`` at batch 8 (32 before
+    the time budget) from one state with remat on and off on the card and
+    with remat on the CPU, which must agree; and one step (2 before the
+    time budget) with ``hvp_micro=2`` under remat, K1 launching
+    ``hvp_micro * (pow_iters + 2)`` times;
 11. the eigensolvers: ``forest_best`` and ``usps_cnn_mu0_01_K0`` for one
-    epoch with power iteration and with ``eigensolver='auto'`` (which must
+    epoch on the first 3,200 and 2,048 train rows (a cut for time) with
+    power iteration and with ``eigensolver='auto'`` (which must
     resolve to the early-exit Lanczos solver), USPS with
     ``eigensolver='lanczos'`` and with ``rand_init=True``, HVPs per step
     beside phase 7's power iteration;
     float64 Lanczos ``rho`` at one batch on the card vs the CPU;
-    ``rho_test_fused`` and ``spectrum_test`` (subspace and Lanczos, k=4)
-    on 4 USPS batches; and the port's plain-autograd HVP and vGHv against
+    ``rho_test_fused`` and ``spectrum_test`` (subspace, at most 50 sweeps,
+    and Lanczos, k=4) on 4 USPS batches; and the port's plain-autograd HVP and vGHv against
     ``torch.func`` forms of them (``jvp(grad)`` and ``grad(<jvp(grad), v>)``)
-    on the three models (float64 agreement, float32 times);
+    on the three models (float64 agreement, float32 times of 5 calls);
 12. the comparators: the ten configs ``forest_``/``usps_cnn_`` +
     ``lobpcg``, ``kfac``, ``sam``, ``entropy_sgd`` and
-    ``asymmetric_valley`` through ``driver.run`` at full width on their
-    full synthetic stand-ins for 1 epoch (Asymmetric Valley cut to 4 so
+    ``asymmetric_valley`` through ``driver.run`` at full width on the first
+    3,200 Forest and 2,048 USPS train rows (their whole synthetic stand-ins
+    before the time budget) for 1 epoch (Asymmetric Valley cut to 4 so
     that SWA, ``bn_update``, the SGD hunt and the interpolation get their
     turn), each with s/epoch, steps/s, mean ``pow_iters``, a profiled step
     and its log rows, test lines, parameters and factors checked; the
@@ -84,9 +92,11 @@ Phases (any failure exits non-zero and prints no result line):
     ``make_multilabel`` stand-ins (NIH 14 classes; CheXpert and MIMIC 13,
     10% NaN labels): ``chestxray_mu0_01_K0`` (``CXRModel(densenet121)``,
     batch 4) through ``driver.run`` with no other override but
-    ``max_iter=1`` and the loaders (8 train rows, 8 valid, 8 per test
-    set; 2 steps, a cut for the time limit only), ``comp_test`` over the
-    three test sets on their shared classes, then the same epoch with ``remat=False``: s/epoch, steps/s, mean
+    ``max_iter=1`` and the loaders (4 train rows, 8 valid, 8 per test
+    set; one step, a cut for the time limit only: 8 train rows and 2
+    steps before the time budget), ``comp_test`` over the three test sets
+    on their shared classes, then the same epoch with ``remat=False``:
+    s/epoch, steps/s, mean
     ``pow_iters``, a profiled step, the peak device memory and the
     per-dataset AUC; the memory of one step's curvature passes with remat
     on and off (remat's HVP map must hold less between products and its
@@ -94,10 +104,11 @@ Phases (any failure exits non-zero and prints no result line):
     ``chestxray_best_reg`` (``auto`` resolving to the early-exit Lanczos
     solver); one K-FAC refresh on ``CXRModel`` (``chestxray_best_lobpcg``)
     timed by part, the transit conv's 9,217-wide ``eigh`` alone; one step
-    with ``hvp_micro=2``, K1 launching ``2 * (pow_iters + 2)`` times; 2
-    full-width steps each of ``chestxray_mu0_vgg`` (VGG16-BN) and
+    with ``hvp_micro=2`` and at most 2 HVPs, K1 launching ``2 * (pow_iters + 2)`` times; one
+    full-width step each of ``chestxray_mu0_vgg`` (VGG16-BN) and
     ``cifar100_resnet_mu0`` (ResNet50, 32 px); and a float64 step of
-    ``CXRModel(densenet121)`` at 64 px, batch 2, on the card vs the CPU;
+    ``CXRModel(densenet121)`` at 64 px, batch 2, at most 2 HVPs, on the
+    card vs the CPU;
 14. the analysis path (no K1 on it: gradients to the input, GAN steps):
     ``CXRModel(densenet121)`` at 224 px, batch 4, on 16 stand-in rows,
     ``chestxray_mu0_01_K0`` against a ``chestxray_mu0`` baseline (another
@@ -106,7 +117,8 @@ Phases (any failure exits non-zero and prints no result line):
     method with the meta-classifier and ``jaccard_comp`` over three
     trainers; the three maps in float64 on the card vs the CPU at 64 px,
     batch 2; the MLP cGAN through the ``gan`` script at its published
-    defaults for 2 of the published 200 epochs (a cut for time only) with
+    defaults for 1 of the published 200 epochs (a cut for time only; 2
+    before the time budget) with
     10,000 generated images, the DC-cGAN (``--dc``, feat 64, 32x32) for 1
     epoch, steps/s, a profiled run's busy share and the peak memory, and
     two float64 steps of each on the card vs the CPU with the draws
@@ -114,10 +126,11 @@ Phases (any failure exits non-zero and prints no result line):
     cosine) of the 2,007 USPS test rows to the 10,000 generated images and
     ``create_dist_dataset`` over the two augmented test sets (the
     ``distance`` and ``create_dist`` scripts); ``forest_best``,
-    ``forest_unreg`` and ``mu=0.01 K=1`` for 1 epoch through
-    ``driver.run``, the ``cov_shift_test`` script's 100 shifts (draws/s)
+    ``forest_unreg`` and ``mu=0.01 K=1`` for 1 epoch on the first 2,560
+    train rows through ``driver.run``, the ``cov_shift_test`` script's 100 shifts (draws/s)
     and its slope comparison, and the float64 sweep on the card vs the
-    CPU; ``usps_cnn_mu0_01_K0`` for 1 epoch through ``driver.run`` with
+    CPU; ``usps_cnn_mu0_01_K0`` for 1 epoch on the first 1,024 train rows
+    through ``driver.run`` with
     ``saliency`` and ``jaccard`` against a first run's checkpoint;
 15. dropout, the gemm CNN, the legacy loops, the oracle and reference
     checkpoints: the original DenseNet-40 of Huang et al. (``DenseNet3(depth=40,
@@ -125,14 +138,15 @@ Phases (any failure exits non-zero and prints no result line):
     1,059,298 parameters) through ``driver.run`` with
     ``cifar10_densenet_mu0_01_K0``'s options but the model,
     ``has_dropout=True``, ``augment=False`` and ``max_iter=1``, on the
-    first 256 rows of each split (8 steps; a cut for time only) under the
+    first 128 rows of each split (4 steps; a cut for time only) under the
     recipe's ``remat``: s/epoch, steps/s, mean ``pow_iters``, a profiled
-    step and the peak memory; 2 steps with ``hvp_micro=2, remat=False``,
-    K1 launching ``2 * (pow_iters + 2)`` times a step; ``u.(H v) == v.(H
-    u)`` within one step's key in float32; a float64 step at batch 4 on the
-    card vs the CPU with the masks injected; ``usps_cnn_mu0_01_K0`` with
-    ``CNNUSPS(conv_impl='gemm')`` for one epoch on the first 2,048 train
-    rows (16 steps; a cut for time only), steps/s and HVPs/s beside phase
+    step and the peak memory; one step (2 before the time budget) with
+    ``hvp_micro=2, remat=False``, K1 launching ``2 * (pow_iters + 2)``
+    times; ``u.(H v) == v.(H
+    u)`` within one step's key in float32; a float64 step at batch 2 and at
+    most 2 HVPs on the card vs the CPU with the masks injected; ``usps_cnn_mu0_01_K0`` with
+    ``CNNUSPS(conv_impl='gemm')`` for one epoch on the first 1,024 train
+    rows (8 steps; a cut for time only, 16 before the time budget), steps/s and HVPs/s beside phase
     7's lax run, and its float64 step card vs CPU; ``legacy.train_epoch``,
     ``validate`` and ``test`` on ``CXRModel(densenet121)`` at 224 px, batch
     4, 16 NIH stand-in rows, and ``train2_epoch`` on a ``VAE`` over the
@@ -145,13 +159,13 @@ Phases (any failure exits non-zero and prints no result line):
     recipe through ``driver.run``, the train set on the card
     (``device_data``, ``cifar_augment_device`` for the host augmentation),
     ``scan_steps=8``, ``donate``, ``mem_track`` and epoch 0 profiled into
-    ``profile_dir``, two epochs on the first 64 rows (2 steps, one chunk
+    ``profile_dir``, two epochs on the first 32 rows (1 step, one chunk
     an epoch; a cut for time only): s/epoch, steps/s, mean ``pow_iters``,
     ``mem_max``, the peak memory, the trace's size, events and busy share;
     the unprofiled epoch 1 against epoch 1 of the same run with
     ``scan_steps=1`` and no ``donate`` (the same ``pow_iters``) and beside
-    phase 10's run with every knob off; (b) the float64 recipe at batch 4
-    for 2 chunks of 2 steps with ``scan_steps``, ``donate`` and the device
+    phase 10's run with every knob off; (b) the float64 recipe at batch 4,
+    at most 2 HVPs a step, for 2 chunks of 2 steps with ``scan_steps``, ``donate`` and the device
     loader on and then off, within ``CARD_F64_RTOL``, the donated state
     keeping its storage; (c) one such chunk with ``hvp_micro=2``, K1
     launching ``2 * (pow_iters + 2)`` times a step; (d) one
@@ -159,8 +173,9 @@ Phases (any failure exits non-zero and prints no result line):
     on, the peak memory of each; (e) two gloo ranks sharing the card (this
     script started with ``--rank``) at float64 on ``usps_cnn_mu0_01_K0`` for
     one epoch of 2 steps and on the DenseNet-40 recipe for one step at
-    batch 4, against one process, and a one-rank NCCL group on
-    ``forest_best`` (float64) for one epoch through ``driver.run`` against
+    batch 4, at most 2 HVPs a step, against one process, and a one-rank NCCL
+    group on ``forest_best`` (float64) for one epoch on the first 2,560
+    train rows through ``driver.run`` against
     ``mesh=None``, all within ``CARD_F64_RTOL``;
 17. the ``model`` mesh axis (``parallel/sharding.py``: each sharded conv
     and dense layer computes its own output columns and assembles the
@@ -170,19 +185,20 @@ Phases (any failure exits non-zero and prints no result line):
     ``CXRModel(densenet121)`` sharded at the default ``min_elems`` (the
     leaves and values sharded, the bytes of params, ``v`` and Adam state a
     rank holds against one process), one ``train_step`` with
-    ``hvp_micro=2`` at 224 px, batch 4, float32, K1 launching ``2 *
+    ``hvp_micro=2`` and at most 2 HVPs at 224 px, batch 4, float32, K1 launching ``2 *
     (pow_iters + 2)`` times on the local slices (their 16-byte alignment,
     and every call bit-equal to its plain version on the same leaves),
     ``rho``, ``g``, ``f`` before the step, the Adam moments, the
     BatchNorm statistics and the updated params against one process from
     the same seed, and the update each rank applied against Adam's step
     from the moments it holds, within ``CARD_F32_RTOL``, then the same
-    but the params at float64, 64 px, batch 2 within ``CARD_F64_RTOL``,
+    but the params at float64, 64 px, batch 2 and at most 2 HVPs within
+    ``CARD_F64_RTOL``,
     the step's seconds and each process's peak device memory, sharded and
     not; at float32, for each rank and one process beside the card's name
     and power limit, the step's all-reduces over the ``model`` group and
-    its column assemblies with their bytes, and one more step profiled
-    (device-busy ms, kernels); (b) four ranks as ``data=2 x model=2``, the JAX package's multi-chip dryrun (``__graft_entry__.py``)
+    its column assemblies with their bytes (one more step profiled before
+    the time budget); (b) four ranks as ``data=2 x model=2``, the JAX package's multi-chip dryrun (``__graft_entry__.py``)
     on CNNUSPS at float64 with ``min_elems=1024``: a step, a
     ``scan_steps=2`` epoch, a LOBPCG step, a Lanczos step, the control,
     flagship-knob and ``auto`` epochs, each against one process; (c) the
@@ -198,33 +214,64 @@ Phases (any failure exits non-zero and prints no result line):
     the float32 model): s/epoch, steps/s, mean ``pow_iters``, the peak
     memory, a profiled step's busy share and kernel count; the JAX bench's
     DenseNet-40 HVP rate (batch 128, remat) at bfloat16 and float32
-    compute, median (min-max) of 3; (b) 2 steps of it with ``hvp_micro=2,
+    compute, one reading each (the median of 3 before the time budget);
+    (b) 2 steps of it with ``hvp_micro=2,
     remat=False``, K1 launching ``2 * (pow_iters + 2)`` times a step on
     float32 leaves, every call bit-equal to its plain version; (c)
     ``chestxray_mu0_01_K0`` with ``CXRModel("densenet121", outnum=14,
-    dtype=torch.bfloat16)`` at 224 px, batch 4, 2 steps through
+    dtype=torch.bfloat16)`` at 224 px, batch 4, one step through
     ``driver.run``: steps/s, mean ``pow_iters``, the peak memory, a profiled
     step; (d) a bfloat16 and a float32 ``train_step`` of the recipe on the
     card from one state and batch (``rho``, ``g``, the loss, the update and
     the BatchNorm statistics within the ``BF16_*`` bounds), and a bfloat16
-    DenseNet-40 forward, gradient and HVP on the card against the port's
-    bfloat16 on the CPU (the tests' rule); (e) one ``usps_cnn_mu0_01_K0``
+    DenseNet-40 forward, gradient and HVP at batch 4 (8 before the time
+    budget) on the card against the port's bfloat16 on the CPU (the
+    tests' rule); (e) one ``usps_cnn_mu0_01_K0``
     step with ``CNNUSPS(conv_impl='gemm', dtype=torch.bfloat16)`` (bfloat16
     conv parameters beside float32 dense ones) and ``hvp_micro=2``, K1's
     bfloat16 and float32 entries one launch each a call, every call
     bit-equal to its plain version;
-19. a ``{"kernels": [...]}`` line (K1's launches summed over phases 4, 7,
-    8, 10, 11, 12, 13, 15, 16, 17 and 18, each counted from 0 just before
-    its run), the card's name and power limit, and last the ``{"ok": true,
-    "device": ...}`` line.
+19. the Asymmetric Valley trainer under a mesh and the micro-batched step
+    on a data mesh, one spawn of two gloo ranks sharing the card against
+    this process alone, all at float64 within ``CARD_F64_RTOL``: (a)
+    ``usps_cnn_asymmetric_valley`` (CNNUSPS, 14,794 parameters, batch 128)
+    on the first 512 train rows and 256 of the other sets (``AV_ROWS``),
+    cut to 4 epochs and a 5-point sweep (``AV_MESH``) through
+    ``driver.run`` on ``data=2``, each rank its block of the global
+    batches, then on ``data=1 x model=2`` with ``conv2``, ``conv3`` and
+    ``fc1`` sharded: ``f`` per epoch and the four
+    ``asymmetric_valley_*_results.txt`` arrays from rank 0, the SWA params
+    from every rank; (b) the DenseNet-40 recipe at full width with
+    ``hvp_micro=2, remat=False`` and at most 2 HVPs, one step on 8 rows in their natural
+    order on ``data=2`` (each rank 4 rows, its share of the 2 global
+    micro-batches): ``rho``, ``g``, the params and the BatchNorm
+    statistics, K1 launching ``2 * (pow_iters + 2)`` times on each rank,
+    every call bit-equal to its plain version; steps, seconds and peak
+    device memory of every process;
+20. the seconds of every phase against the ``BUDGET_S`` budget, a
+    ``{"kernels": [...]}`` line (K1's launches summed over phases 4, 7,
+    8, 10, 11, 12, 13, 15, 16, 17, 18 and 19, each counted from 0 just
+    before its run), the card's name and power limit, and last the
+    ``{"ok": true, "device": ...}`` line.
 
 Weights are random (seed 1226); the data are the real sets when they are
 under ``./data``, else their synthetic stand-ins.
+
+Every wait is bounded.  The ranks join their gloo group with a
+``RANK_TIMEOUT_S`` timeout, so a collective that one rank never makes
+raises in its peer; the smoke waits for a phase's ranks at most about 3x
+their measured time and never more than ``RANK_WAIT_MAX_S``, and then
+kills them, prints each rank's last 4,000 characters and fails naming the
+phase.  At ``DEADLINE_S`` from the start a watchdog prints the phase in
+progress, kills every rank still alive, dumps every thread's stack and
+exits 1.
 """
 
 from __future__ import annotations
 
 import contextlib
+import datetime
+import faulthandler
 import gc
 import io
 import json
@@ -233,6 +280,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -240,7 +288,9 @@ import torch
 
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12  # float32 outside the tensor cores
-STEPS = 5
+STEPS = 3  # phase 4's steps (5 until the smoke got its time budget)
+EPOCHS = 1  # phase 7's epochs (2 before the time budget)
+ROUNDS = 3  # phase 3's timing rounds (5 before the budget)
 # the parameter tensors and parameters of torchvision's densenet121 (the
 # chest-x-ray backbone), for a K1 tree of that size
 DN121_LEAVES = 364
@@ -258,6 +308,37 @@ DN121_VALUES = 7_978_856
 # 1e-1 and more.  Float64: rounding only.
 CARD_F32_RTOL = 3e-2
 CARD_F64_RTOL = 1e-9
+# the rows of phase 10's float64 card-vs-CPU step (the recipe's 32 before the
+# time budget)
+F64_ROWS = 4
+# phase 10's remat steps through K1 (2 before the time budget)
+REMAT_MICRO_STEPS = 1
+# the power iterations of the float64 steps held against the CPU or run on
+# gloo ranks, a cut for time (the configs' caps of 100 before the time
+# budget): on 2 gloo ranks every BatchNorm statistic and product crosses the
+# host, 21.2 s a DenseNet-40 step of 7 HVPs.  A DenseNet-40 recipe step keeps
+# its rho when the 2 HVPs do not converge (the recipe discards it), so the
+# comparisons hold a real rho
+F64_POW_ITERS = 2
+F64_CAP = dict(max_pow_iter=F64_POW_ITERS, ignore_bad_vals=False)
+# the time budget: the whole smoke in 720 s on an H100, 60% of the 1,200 s
+# it is allowed, which leaves room for a host 1.6x slower; at 1,080 s a
+# watchdog names the phase in progress, kills the ranks, dumps every
+# thread's stack and exits 1
+BUDGET_S = 720
+DEADLINE_S = 1080
+# a rank's collective that its peer never makes raises after this (the
+# ranks' process group timeout)
+RANK_TIMEOUT_S = 120
+# the longest the smoke waits for a phase's ranks, and each phase's wait:
+# about 3x the phase's measured time (PERF.md section 5)
+RANK_WAIT_MAX_S = 240
+MESH_WAIT_S = 90  # phase 16 (e): its ranks 24.6 s
+TP2_WAIT_S = 240  # phase 17 (a): 116.7 s, its ranks about 80 s of it
+TP4_WAIT_S = 100  # phase 17 (b, c): 31.5 s
+AV_WAIT_S = 90  # phase 19: 27.3 s, 60 s budgeted
+# the phase in progress and the rank processes started, for the watchdog
+_RUN = {"phase": "start-up", "ranks": []}
 
 
 def log(*args):
@@ -371,7 +452,7 @@ def host_us(fn, reps=200):
     return us
 
 
-def wall_ms(fns, reps, rounds=5):
+def wall_ms(fns, reps, rounds=ROUNDS):
     """Per name, the median, least and most of ``rounds`` readings of
     :func:`cuda_time_ms` over ``reps`` back-to-back calls, the functions
     taken in turns so that the host's noise falls on each alike."""
@@ -510,7 +591,7 @@ def phase_kernel_check(leaf_shapes):
     nbytes, nflops = 12 * n, 2 * n
     bound_ms = 1e3 * max(nbytes / H100_BYTES_PER_S, nflops / H100_FP32_FLOPS)
     log(f"axpy_accumulate per full-model accumulate ({len(accs)} leaves, {n} values, "
-        f"{nbytes} B, one call), wall ms per call, median (min-max) of 5: {show(wall)}; "
+        f"{nbytes} B, one call), wall ms per call, median (min-max) of {ROUNDS}: {show(wall)}; "
         f"kernel device time per launch {show_us(dn40_us)}, bound {bound_ms:.6f} ms (bytes)")
     log("axpy_accumulate host us per densenet40 call: "
         + ", ".join(f"{k} {v:.1f}" for k, v in host.items()))
@@ -527,7 +608,7 @@ def phase_kernel_check(leaf_shapes):
     dn121_bound_us = 1e6 * 12 * n121 / H100_BYTES_PER_S
     log(f"axpy_accumulate densenet121-sized tree ({len(accs)} leaves, {n121} values, "
         f"{12 * n121} B): kernel device time per launch {show_us(dn121_us, dn121_bound_us)}; "
-        f"wall ms per call, median (min-max) of 5: {show(wall121)}")
+        f"wall ms per call, median (min-max) of {ROUNDS}: {show(wall121)}")
 
     big_a = torch.randn(1 << 24, device="cuda", generator=g)
     big_d = torch.randn(1 << 24, device="cuda", generator=g)
@@ -539,7 +620,8 @@ def phase_kernel_check(leaf_shapes):
     b16 = 1e6 * 12 * (1 << 24) / H100_BYTES_PER_S
     aim = "" if flat_us is None or b16 / flat_us >= 0.8 else ", BELOW the 80% aim"
     log(f"axpy_accumulate flat 16M (201 MB moved): kernel device time per launch "
-        f"{show_us(flat_us, b16)}{aim}; wall ms per call, median (min-max) of 5: {show(wall16)}")
+        f"{show_us(flat_us, b16)}{aim}; wall ms per call, median (min-max) of {ROUNDS}: "
+        f"{show(wall16)}")
     return {
         "name": "axpy_accumulate",
         "route": "cuda",
@@ -661,8 +743,9 @@ def phase_profile(trainer, batch, label="densenet40 hvp_micro=2", step=None):
     return wall_us / 1e3, busy_us / 1e3, launches
 
 
-def phase_card_vs_cpu(trainer, batch):
-    """HVP and vGHv at the trained weights on a fixed ``v``: the card
+def phase_card_vs_cpu(trainer, batch, rows=8):
+    """HVP and vGHv at the trained weights on a fixed ``v``, on the first
+    ``rows`` rows of the step's batch (32 before the time budget): the card
     against the port on the CPU in float64.  The micro-batched products
     run through K1 on the card in float32 and in float64, each held to the
     CPU's float64 micro-batched product; float64 on the card also runs the
@@ -684,6 +767,7 @@ def phase_card_vs_cpu(trainer, batch):
         k: (t.detach().to(device, dtype) if t.is_floating_point() else t.to(device))
         for k, t in tree.items()}
     task, micro = trainer.task, trainer.hvp_micro
+    batch = {k: t[:rows] for k, t in batch.items()}
     p64, s64, b64 = (cast(t, torch.float64, cpu) for t in
                      (trainer.params, trainer.model_state, batch))
     half = {k: t[:len(t) // micro] for k, t in b64.items()}
@@ -782,17 +866,19 @@ def run_epochs(label, opts, device, epochs):
     return trainer, trainer.put_batch(next(iter(train_loader))), launches
 
 
-def phase_epochs(device="cuda", epochs=2):
-    """Phase 7: Forest and USPS through ``driver.run`` at full width."""
+def phase_epochs(device="cuda", epochs=EPOCHS):
+    """Phase 7: Forest and USPS through ``driver.run`` at full width on
+    ``TRAIN_ROWS`` train rows."""
     from optwboundeigenval_tpu_torch.configs import forest_best, usps_cnn_mu0_01_K0
 
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
         for label, mod in (("forest_best", forest_best),
                            ("usps_cnn_mu0_01_K0", usps_cnn_mu0_01_K0)):
-            opts = mod.options(max_iter=epochs, rho_test=True, device=device,
-                               log_dir=f"{tmp}/{label}/logs",
-                               model_dir=f"{tmp}/{label}/models")
+            opts = _train_rows(mod.options(max_iter=epochs, rho_test=True, device=device,
+                                           log_dir=f"{tmp}/{label}/logs",
+                                           model_dir=f"{tmp}/{label}/models"),
+                               TRAIN_ROWS[label.split("_")[0]])
             out[label] = run_epochs(label, opts, device, epochs)
     return out
 
@@ -824,6 +910,23 @@ def phase_densenet_epoch(device="cuda", rows=128):
     return trainer, batch, launches
 
 
+def _train_rows(opts, rows):
+    """``opts`` with the train set cut to its first ``rows`` rows (the
+    ``inputs``/``target`` arrays, or the train loaders with their batch size,
+    shuffling and augmentation), a cut for time."""
+    from optwboundeigenval_tpu_torch.data.loaders import ArrayLoader
+
+    if opts.get("inputs") is not None:
+        opts["inputs"], opts["target"] = opts["inputs"][:rows], opts["target"][:rows]
+        return opts
+    for key in ("train_loader", "train_loader_na"):
+        ld = opts.get(key)
+        if ld is not None:
+            opts[key] = ArrayLoader(ld.x[:rows], ld.y[:rows], ld.batch_size,
+                                    shuffle=ld.shuffle, seed=1226, augment=ld.augment)
+    return opts
+
+
 def _first_batch(mod, rows, **overrides):
     opts = mod.options(device="cpu", **overrides)
     if "train_loader" in opts:
@@ -835,7 +938,7 @@ def _first_batch(mod, rows, **overrides):
         "x": x, "y": y, "w": np.ones(rows, np.float32)}
 
 
-def phase_cached_hvp(reps=20):
+def phase_cached_hvp(reps=5):
     """Phase 9: ``linearize_hvp`` (one gradient graph, one reverse pass per
     HVP) against the closure (``curvature.hvp``, reverse over reverse from
     scratch per HVP): float64 on the card vs the CPU's float64 closure, and
@@ -965,7 +1068,9 @@ def remat_memory(label, build, batch, device="cuda"):
     Fails unless the remat map holds less between products and its
     eigensolve peaks lower (``jax.linearize(grad(jax.checkpoint(loss)))``
     keeps only its inputs).  The vGHv pass holds the most in both
-    settings, so it sets the step's peak in both."""
+    settings, so it sets the step's peak in both.  Every product peaks
+    alike, so ``build`` may cap the power iterations (the smoke gives 2).
+    """
     from optwboundeigenval_tpu_torch.ops import curvature
 
     mem, out = _Memory(device), {}
@@ -1045,15 +1150,17 @@ def phase_recipe(device="cuda", rows=128):
                 phase_profile(trainer, batch, f"cifar10_densenet_mu0_01_K0 {label}")
     if cuda:
         remat_memory("cifar10_densenet_mu0_01_K0", lambda remat: build_trainer(
-            cfg.options(device=device, remat=remat, augment=False)),
+            cfg.options(device=device, remat=remat, augment=False,
+                        max_pow_iter=F64_POW_ITERS)),
             next(iter(cfg.options(device="cpu", augment=False)["train_loader_na"])))
 
-    # float64 from one state: remat on and off on the card, remat on the CPU
-    batch = next(iter(cfg.options(device="cpu")["train_loader_na"]))
+    # float64 from one state: remat on and off on the card, remat on the CPU,
+    # on F64_ROWS rows
+    batch = next(iter(cfg.options(device="cpu", batch_size=F64_ROWS)["train_loader_na"]))
     steps = {}
     for label, dev, remat in (("card remat", device, True), ("card no remat", device, False),
                               ("cpu remat", "cpu", True)):
-        tr = _as_f64(build_trainer(cfg.options(device=dev, remat=remat)))
+        tr = _as_f64(build_trainer(cfg.options(device=dev, remat=remat, batch_size=F64_ROWS)))
         p0 = {k: t.clone() for k, t in tr.params.items()}
         sync()
         t0 = time.perf_counter()
@@ -1081,7 +1188,7 @@ def phase_recipe(device="cuda", rows=128):
     tr = build_trainer(opts)
     batches = iter(opts["train_loader"])
     pk.axpy_accumulate.launches = 0
-    for i in range(2):
+    for i in range(REMAT_MICRO_STEPS):
         before = pk.axpy_accumulate.launches
         sync()
         t0 = time.perf_counter()
@@ -1099,9 +1206,18 @@ def phase_recipe(device="cuda", rows=128):
     return launches + pk.axpy_accumulate.launches, published
 
 
+# the epochs of phases 7, 11 and 12 on the first rows of the train set
+# (Forest 12,800, USPS 6,250 before the time budget)
+TRAIN_ROWS = {"forest": 3200, "usps": 2048}
+# phase 11's subspace sweeps at most (200, which the batches reached, before
+# the time budget)
+SPECTRUM_SWEEPS = 50
+
+
 def phase_eigensolvers(power_hvps, device="cuda"):
     """Phase 11: the Lanczos solvers and ``rand_init`` through
-    ``driver.run``, float64 Lanczos on the card vs the CPU, the two audits,
+    ``driver.run`` for one epoch on ``TRAIN_ROWS`` train rows, float64
+    Lanczos on the card vs the CPU, the two audits,
     and the curvature products' two forms.  ``power_hvps`` maps a config
     name to phase 7's mean HVPs per step.  Returns K1's launches."""
     from optwboundeigenval_tpu_torch.configs import forest_best, usps_cnn_mu0_01_K0
@@ -1119,14 +1235,16 @@ def phase_eigensolvers(power_hvps, device="cuda"):
                  "lanczos"),
                 ("usps_cnn_mu0_01_K0", usps_cnn_mu0_01_K0, {"rand_init": True}, "power"))):
             label = f"{name} " + ", ".join(f"{k}={v}" for k, v in kw.items())
-            opts = mod.options(max_iter=1, device=device, log_dir=f"{tmp}/{i}/logs",
-                               model_dir=f"{tmp}/{i}/models", **kw)
+            opts = _train_rows(mod.options(max_iter=1, device=device,
+                                           log_dir=f"{tmp}/{i}/logs",
+                                           model_dir=f"{tmp}/{i}/models", **kw),
+                               TRAIN_ROWS[name.split("_")[0]])
             tr, b, n = run_epochs(label, opts, device, 1)
             launches += n
             if device == "cuda":
                 phase_profile(tr, b, label)
             log(f"{label}: solver {tr.eigensolver} (lanczos_m {tr.lanczos_m}), mean HVPs "
-                f"per step {tr.mean_pow_iters:.2f}; power iteration in phase 7 (2 epochs): "
+                f"per step {tr.mean_pow_iters:.2f}; power iteration in phase 7: "
                 f"{power_hvps.get(name, float('nan')):.2f}")
             if tr.eigensolver != want:
                 fail(f"{label}: resolved to {tr.eigensolver}, expected {want}")
@@ -1145,7 +1263,8 @@ def phase_eigensolvers(power_hvps, device="cuda"):
             fail("rho_test_fused: values not finite")
         for method in ("subspace", "lanczos"):
             t0 = time.perf_counter()
-            rows = usps_trainer.spectrum_test(loader=four, k=4, method=method)
+            rows = usps_trainer.spectrum_test(loader=four, k=4, method=method,
+                                              max_iter=SPECTRUM_SWEEPS)
             log(f"spectrum_test {method} k=4 over 4 USPS batches: {time.perf_counter() - t0:.2f} s;"
                 f" eigenvalues of batch 0 {rows[0, :4].tolist()}, residuals "
                 f"{rows[0, 4:8].tolist()}, sweeps or HVPs {rows[:, 8].tolist()}")
@@ -1202,7 +1321,7 @@ def _func_vghv(loss, p, b, v):
     return grad(lambda q: tree_vdot(_func_hvp(loss, q, b, v), v))(p)
 
 
-def _curvature_forms(device, reps=20):
+def _curvature_forms(device, reps=5):
     """The port's plain-autograd HVP and vGHv against ``torch.func`` forms of
     them on the three models: float64 agreement on the card, and float32
     times on the card (CUDA events)."""
@@ -1263,7 +1382,8 @@ def _factors(trainer, fields=("m_aa", "m_gg", "Q_a", "d_a", "Q_g", "d_g")):
 
 def run_comparator(name, device="cuda", tmp="."):
     """``driver.run`` of the config ``name`` for one epoch (Asymmetric
-    Valley: ``AV_SMALL``) on its full synthetic stand-in, K1's count set
+    Valley: ``AV_SMALL``) on the first ``TRAIN_ROWS`` rows of its synthetic
+    stand-in (the whole of it before the time budget), K1's count set
     to 0 just before and read just after; prints s/epoch, steps/s, mean
     ``pow_iters`` and the busy share of one profiled step, and fails on
     a non-finite log row or test line, or a parameter or factor off the
@@ -1276,8 +1396,9 @@ def run_comparator(name, device="cuda", tmp="."):
     av = name.endswith("asymmetric_valley")
     mod = importlib.import_module(f"optwboundeigenval_tpu_torch.configs.{name}")
     over = dict(AV_SMALL, plot_dir=f"{tmp}/{name}/plots") if av else dict(max_iter=1)
-    opts = mod.options(device=device, log_dir=f"{tmp}/{name}/logs",
-                       model_dir=f"{tmp}/{name}/models", **over)
+    opts = _train_rows(mod.options(device=device, log_dir=f"{tmp}/{name}/logs",
+                                   model_dir=f"{tmp}/{name}/models", **over),
+                       TRAIN_ROWS[name.split("_")[0]])
     epochs = opts["max_iter"]
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
     pk.axpy_accumulate.launches = 0
@@ -1344,7 +1465,7 @@ def run_comparator(name, device="cuda", tmp="."):
     return launches
 
 
-def kfac_times(device="cuda", reps=5):
+def kfac_times(device="cuda", reps=2):
     """One K-FAC refresh (capture, EMA from identity, the ``eigh``s) and one
     preconditioner apply on the card for Forest, USPS (batch 128) and
     DenseNet-40 (batch 32), float32, CUDA events; beside them the capture
@@ -1512,7 +1633,9 @@ def phase_comparators(device="cuda"):
 
 
 CXR_PX = 224  # the published input width of the chest x-ray recipes
-CXR_ROWS = (8, 8, 8)  # train, valid and each test set: 2 steps at batch 4
+# train, valid and each test set: 1 step at batch 4 (8 train rows, 2 steps,
+# before the time budget)
+CXR_ROWS = (4, 8, 8)
 
 
 def cxr_loaders(rows=CXR_ROWS, px=CXR_PX, batch=4):
@@ -1612,13 +1735,15 @@ def cxr_main_runs(device="cuda", rows=CXR_ROWS, px=CXR_PX):
         log(f"chestxray peak memory of the epoch: remat {on} B, no remat {off} B "
             f"({on / off:.3f}x)")
         remat_memory("chestxray_mu0_01_K0", lambda remat: build_trainer(
-            cfg.options(device=device, remat=remat)), next(iter(opts["train_loader"])))
+            cfg.options(device=device, remat=remat, max_pow_iter=F64_POW_ITERS)),
+            next(iter(opts["train_loader"])))
     return launches
 
 
 def cxr_best_reg(device="cuda", px=CXR_PX):
-    """2 steps of ``chestxray_best_reg``: ``eigensolver='auto'`` must resolve
-    to the early-exit Lanczos solver under ``rand_init``."""
+    """One step of ``chestxray_best_reg`` (2 before the time budget):
+    ``eigensolver='auto'`` must resolve to the early-exit Lanczos solver
+    under ``rand_init``."""
     from optwboundeigenval_tpu_torch.configs import chestxray_best_reg
     from optwboundeigenval_tpu_torch.train.driver import build_trainer
 
@@ -1628,10 +1753,10 @@ def cxr_best_reg(device="cuda", px=CXR_PX):
         f"rand_init {tr.rand_init}, gradg_clip {tr.gradg_clip}, remat {tr.remat}")
     if tr.eigensolver != "lanczos_adaptive" or not tr.rand_init:
         fail(f"chestxray_best_reg: 'auto' resolved to {tr.eigensolver}")
-    _steps("chestxray_best_reg", tr, opts["train_loader"], 2, device)
+    _steps("chestxray_best_reg", tr, opts["train_loader"], 1, device)
 
 
-def cxr_kfac(device="cuda", px=CXR_PX, reps=1, host_max=2048):
+def cxr_kfac(device="cuda", px=CXR_PX, reps=1, host_max=512):
     """One K-FAC refresh on ``CXRModel(densenet121)`` (``chestxray_best_lobpcg``)
     timed whole and by part: the capture, the ``eigh``s on the card (the
     transit conv's 9,217-wide ``A`` alone too) and the preconditioner
@@ -1693,7 +1818,8 @@ def cxr_k1_step(device="cuda", px=CXR_PX):
     from optwboundeigenval_tpu_torch.ops import pallas_kernels as pk
     from optwboundeigenval_tpu_torch.train.driver import build_trainer
 
-    opts = cfg.options(hvp_micro=2, device=device, **cxr_loaders((4, 4, 4), px))
+    opts = cfg.options(hvp_micro=2, device=device, max_pow_iter=F64_POW_ITERS,
+                       **cxr_loaders((4, 4, 4), px))
     tr = build_trainer(opts)
     tr.init_state()
     pk.axpy_accumulate.launches = 0
@@ -1710,9 +1836,10 @@ def cxr_k1_step(device="cuda", px=CXR_PX):
 
 
 def cxr_other_trunks(device="cuda", px=CXR_PX):
-    """2 full-width steps each of ``chestxray_mu0_vgg`` (VGG16-BN, 224 px,
-    batch 4) and ``cifar100_resnet_mu0`` (the ResNet50 ``CXRModel`` with 100
-    outputs, 32 px, the first 64 CIFAR-100 rows at batch 32)."""
+    """One full-width step each (2 before the time budget) of
+    ``chestxray_mu0_vgg`` (VGG16-BN, 224 px, batch 4) and
+    ``cifar100_resnet_mu0`` (the ResNet50 ``CXRModel`` with 100 outputs,
+    32 px, the first 32 CIFAR-100 rows at batch 32)."""
     from optwboundeigenval_tpu_torch.configs import chestxray_mu0_vgg, cifar100_resnet_mu0
     from optwboundeigenval_tpu_torch.data.loaders import ArrayLoader
     from optwboundeigenval_tpu_torch.train.driver import build_trainer
@@ -1721,20 +1848,21 @@ def cxr_other_trunks(device="cuda", px=CXR_PX):
     tr = build_trainer(opts)
     log(f"chestxray_mu0_vgg: {tr.task.model.backbone}, {sum(t.numel() for t in tr.task.model.parameters())} "
         f"parameters, batch {tr.batch_size}")
-    _steps("chestxray_mu0_vgg", tr, opts["train_loader"], 2, device)
+    _steps("chestxray_mu0_vgg", tr, opts["train_loader"], 1, device)
     opts = cifar100_resnet_mu0.options(device=device, augment=False)
     ld = opts["train_loader"]
     tr = build_trainer(opts)
     log(f"cifar100_resnet_mu0: {tr.task.model.backbone}, "
         f"{sum(t.numel() for t in tr.task.model.parameters())} parameters, batch {tr.batch_size}")
-    _steps("cifar100_resnet_mu0", tr, ArrayLoader(ld.x[:64], ld.y[:64], tr.batch_size), 2,
+    _steps("cifar100_resnet_mu0", tr, ArrayLoader(ld.x[:32], ld.y[:32], tr.batch_size), 1,
            device)
 
 
 def cxr_card_vs_cpu(device="cuda", px=64, rows=2):
     """One float64 ``train_step`` of ``chestxray_mu0_01_K0``
     (``CXRModel(densenet121)``, remat) at ``px`` px and batch ``rows`` from
-    one state, on the card and with the port on the CPU, within
+    one state, at most ``F64_POW_ITERS`` HVPs (a cut for time; 8 ran
+    before), on the card and with the port on the CPU, within
     ``CARD_F64_RTOL``: the step's metrics, the BatchNorm statistics and
     the step's direction (Adam's first moment).  Not the parameter
     update: Adam's first step divides each coordinate by its own size, so
@@ -1751,7 +1879,8 @@ def cxr_card_vs_cpu(device="cuda", px=64, rows=2):
     batch = {"x": x, "y": y, "w": np.ones(rows, np.float32)}
     steps = {}
     for dev in (device, "cpu"):
-        tr = _as_f64(build_trainer(cfg.options(device=dev, batch_size=rows)))
+        tr = _as_f64(build_trainer(cfg.options(device=dev, batch_size=rows,
+                                               max_pow_iter=F64_POW_ITERS)))
         t0 = time.perf_counter()
         m = tr.train_step(batch)
         steps[dev] = (m, tr.opt_state["mu"], tr.model_state)
@@ -1965,15 +2094,15 @@ def _script(main, argv):
 
 
 def analysis_gans(tmp, device="cuda"):
-    """The ``gan`` script: the MLP cGAN at its published defaults for 2
-    epochs and 10,000 images, the DC-cGAN for 1 epoch; steps/s, peak memory,
+    """The ``gan`` script: the MLP cGAN at its published defaults for 1
+    epoch (2 before the time budget) and 10,000 images, the DC-cGAN for 1 epoch; steps/s, peak memory,
     and the busy share of a profiled 20-step run."""
     from optwboundeigenval_tpu_torch.analysis import gan_train
     from optwboundeigenval_tpu_torch.data import usps
     from optwboundeigenval_tpu_torch.scripts import gan as gan_script
 
     rates = {}
-    for label, extra in (("mlp cgan", ["--n_epochs", "2"]),
+    for label, extra in (("mlp cgan", ["--n_epochs", "1"]),
                          ("dc cgan", ["--dc", "--n_epochs", "1", "--gen_images", "1000"])):
         if device == "cuda":
             torch.cuda.reset_peak_memory_stats()
@@ -2037,8 +2166,14 @@ FOREST_VARIANTS = (("forest_best", 0.0028, 1.0), ("forest_unreg", 0.0, 0.0),
                    ("forest_best", 0.01, 1.0))
 
 
+# phase 14's training runs on the first rows of the train set (Forest
+# 12,800, USPS 6,250 before the time budget)
+ANALYSIS_ROWS = {"forest": 2560, "usps": 1024}
+
+
 def analysis_cov_shift(tmp, device="cuda", iters=100):
-    """Three Forest variants for 1 epoch through ``driver.run``, the
+    """Three Forest variants for 1 epoch on ``ANALYSIS_ROWS`` train rows
+    through ``driver.run``, the
     ``cov_shift_test`` script's ``iters`` shifts on their best checkpoints
     (draws/s), and the float64 sweep of the same checkpoints on the card
     vs the CPU, acc and F1 within ``CARD_F64_RTOL``."""
@@ -2054,9 +2189,9 @@ def analysis_cov_shift(tmp, device="cuda", iters=100):
 
     mods = {"forest_best": forest_best, "forest_unreg": forest_unreg}
     for name, mu, K in FOREST_VARIANTS:
-        tr, sec = _timed(lambda: driver.run(mods[name].options(
+        tr, sec = _timed(lambda: driver.run(_train_rows(mods[name].options(
             max_iter=1, device=device, log_dir=f"{tmp}/logs", model_dir=f"{tmp}/models",
-            mu=mu, K=K)), device)
+            mu=mu, K=K), ANALYSIS_ROWS["forest"])), device)
         log(f"analysis cov shift: {tr.header2} 1 epoch through driver.run, {sec:.1f} s")
     argv = [str(iters), "0.1", "--device", device, "--seed", "1226", "--models_dir",
             f"{tmp}/models", "--log_dir", f"{tmp}/logs", "--plot_dir", f"{tmp}/plots"]
@@ -2090,19 +2225,22 @@ def analysis_cov_shift(tmp, device="cuda", iters=100):
 
 
 def analysis_driver_route(tmp, device="cuda"):
-    """``usps_cnn_mu0_01_K0`` for 1 epoch through ``driver.run``, then again
+    """``usps_cnn_mu0_01_K0`` for 1 epoch on ``ANALYSIS_ROWS`` train rows
+    through ``driver.run``, then again
     (seed 1227) with ``saliency`` and ``jaccard`` against the first run's
     best checkpoint: the CSVs and the saliency ``.npz`` must exist."""
     from optwboundeigenval_tpu_torch.configs import usps_cnn_mu0_01_K0 as cfg
     from optwboundeigenval_tpu_torch.train import driver
 
-    first = driver.run(cfg.options(max_iter=1, device=device, log_dir=f"{tmp}/u0/logs",
-                                   model_dir=f"{tmp}/u0/models"))
+    rows = ANALYSIS_ROWS["usps"]
+    first = driver.run(_train_rows(cfg.options(max_iter=1, device=device,
+                                               log_dir=f"{tmp}/u0/logs",
+                                               model_dir=f"{tmp}/u0/models"), rows))
     best = os.path.join(first.model_dir, first.header2 + "_trained_model_best.pt")
-    tr, sec = _timed(lambda: driver.run(cfg.options(
+    tr, sec = _timed(lambda: driver.run(_train_rows(cfg.options(
         max_iter=1, device=device, seed=1227, saliency=True, jaccard=True, comp_fname=best,
-        log_dir=f"{tmp}/u1/logs", model_dir=f"{tmp}/u1/models", plot_dir=f"{tmp}/u1/plots")),
-        device)
+        log_dir=f"{tmp}/u1/logs", model_dir=f"{tmp}/u1/models", plot_dir=f"{tmp}/u1/plots"),
+        rows)), device)
     csvs = [f"{tr.log_dir}/{tr.header2}_jaccard_{t}.csv" for t in ("cond", "counts", "values")]
     npz = f"{tmp}/u1/plots/{tr.header2}_saliency.npz"
     missing = [f for f in csvs + [npz] if not os.path.exists(f)]
@@ -2165,7 +2303,7 @@ def _original_densenet_opts(device, rows=None, tmp=None, **overrides):
     return opts
 
 
-def dropout_densenet_runs(device="cuda", rows=256, micro_steps=2):
+def dropout_densenet_runs(device="cuda", rows=128, micro_steps=1):
     """Phase 15a: the original DenseNet-40 through ``driver.run`` under the
     recipe's ``remat`` on ``rows`` rows of each split, with s/epoch,
     steps/s, mean ``pow_iters``, a profiled step and the peak memory; then
@@ -2277,22 +2415,24 @@ def _f64_step_card_vs_cpu(label, build, batch, device):
         fail(f"{label}: the float64 step on {device} and on the CPU disagree")
 
 
-def dropout_card_vs_cpu(device="cuda", batch_size=4):
+def dropout_card_vs_cpu(device="cuda", batch_size=2):
     """Phase 15b: a float64 step of the original DenseNet-40 (the recipe's
-    remat) at batch 4, card vs CPU, masks injected."""
+    remat) at batch 2 and at most ``F64_POW_ITERS`` HVPs (batch 4 and the
+    recipe's cap before the time budget), card vs CPU, masks injected."""
     from optwboundeigenval_tpu_torch.train.driver import build_trainer
 
     opts = _original_densenet_opts("cpu", batch_size=batch_size)
     batch = next(iter(opts["train_loader_na"]))
     _f64_step_card_vs_cpu(
         "original DenseNet-40", lambda dev: build_trainer(
-            _original_densenet_opts(dev, batch_size=batch_size)), batch, device)
+            _original_densenet_opts(dev, batch_size=batch_size,
+                                    **F64_CAP)), batch, device)
 
 
-def gemm_usps(device="cuda", lax=None, rows=2048):
+def gemm_usps(device="cuda", lax=None, rows=1024):
     """Phase 15c: ``usps_cnn_mu0_01_K0`` with ``CNNUSPS(conv_impl='gemm')``
     for one epoch through ``driver.run`` on the first ``rows`` train rows
-    (16 steps; a cut for time only), steps/s and HVPs/s beside the lax
+    (8 steps; a cut for time only, 16 before the time budget), steps/s and HVPs/s beside the lax
     run's (phase 7: ``lax`` is its ``(steps/s, mean pow_iters of its last
     epoch)``), and a float64 step on the card vs the CPU."""
     from optwboundeigenval_tpu_torch.configs import usps_cnn_mu0_01_K0 as cfg
@@ -2311,7 +2451,7 @@ def gemm_usps(device="cuda", lax=None, rows=2048):
     rate, hvps = len(trainer.epoch_pow_iters) / g, sum(trainer.epoch_pow_iters) / g
     lax = "not run" if lax is None else f"{lax[0]:.2f} steps/s, mean pow_iters {lax[1]:.2f}"
     log(f"usps_cnn_mu0_01_K0: gemm {rate:.2f} steps/s, {hvps:.1f} HVPs/s (mean pow_iters "
-        f"{trainer.mean_pow_iters:.2f}); lax {lax} (phase 7, 2 epochs)")
+        f"{trainer.mean_pow_iters:.2f}); lax {lax} (phase 7)")
     if device == "cuda":
         phase_profile(trainer, batch, "usps_cnn_mu0_01_K0 gemm")
     first = next(iter(cfg.options(device="cpu")["train_loader_na"]))
@@ -2536,14 +2676,15 @@ def _flagship_run(label, tmp, device, rows, epochs, **knobs):
     return trainer, launches, chunks[0], per_epoch
 
 
-def knobs_flagship(tmp, device="cuda", rows=64, epochs=2, off=None):
+def knobs_flagship(tmp, device="cuda", rows=32, epochs=2, off=None):
     """Phase 16 (a): the JAX package's device-bound flagship leg
     (bench.py:673-703) on the published DenseNet-40 recipe: the train set
     on the card with ``cifar_augment_device`` for the host augmentation,
     ``scan_steps=8``, ``donate``, ``mem_track``, epoch 0 profiled into
-    ``profile_dir``, on the first ``rows`` rows (2 steps, one chunk an
+    ``profile_dir``, on the first ``rows`` rows (1 step, one chunk an
     epoch; a cut for the time limit only: the profiled epoch's trace of 256
-    rows took 1.4 GB, of 128 rows 650 MB).  Epoch 1 runs unprofiled and is compared with epoch
+    rows took 1.4 GB, of 128 rows 650 MB, of 64 rows 517 MB).  Epoch 1 runs
+    unprofiled and is compared with epoch
     1 of the same run with ``scan_steps=1`` and no ``donate`` (the same
     trajectory, so the same HVPs), and with phase 10's run of the recipe
     with every knob off (``off``, phase 10's numbers).  Returns K1's launches."""
@@ -2602,7 +2743,7 @@ def knobs_trajectory(device="cuda", rows=16):
     out = {}
     for on in (True, False):
         knobs = dict(scan_steps=2, donate=True) if on else {}
-        tr, na = _f64_trainer(device, **knobs)
+        tr, na = _f64_trainer(device, **F64_CAP, **knobs)
         x, y = na.x[:rows], na.y[:rows]
         loader = (DeviceArrayLoader(x, y, 4, shuffle=True, seed=1226, device=device) if on
                   else ArrayLoader(x, y, 4, shuffle=True, seed=1226))
@@ -2675,7 +2816,8 @@ def _mesh_runs(device, mesh=None):
     """The scenarios of phase 16 (e) on this rank (``mesh``) or one process:
     ``usps_cnn_mu0_01_K0`` at float64 for one epoch of 2 steps (256 rows)
     and the DenseNet-40 recipe at float64 for one step at batch 4 (its
-    BatchNorm over the ranks' rows)."""
+    BatchNorm over the ranks' rows), each step's power iteration capped by
+    ``F64_CAP``, a cut for time."""
     from optwboundeigenval_tpu_torch.configs import usps_cnn_mu0_01_K0
     from optwboundeigenval_tpu_torch.data.loaders import ArrayLoader
     from optwboundeigenval_tpu_torch.parallel import shard_batch
@@ -2683,8 +2825,10 @@ def _mesh_runs(device, mesh=None):
 
     out = {}
     opts = usps_cnn_mu0_01_K0.options(device=device, mesh=mesh)
-    runs = (("usps_cnn_mu0_01_K0", _as_f64(build_trainer(opts)), opts["train_loader_na"], 128, 2),
-            ("densenet40 recipe", *_f64_trainer(device, mesh=mesh), 4, 1))
+    runs = (("usps_cnn_mu0_01_K0", _as_f64(build_trainer({**opts, **F64_CAP})),
+             opts["train_loader_na"], 128, 2),
+            ("densenet40 recipe", *_f64_trainer(device, mesh=mesh,
+                                                **F64_CAP), 4, 1))
     for label, tr, na, bs, steps in runs:
         batches = list(ArrayLoader(na.x[:steps * bs], na.y[:steps * bs], bs))
         if mesh is not None:
@@ -2707,7 +2851,8 @@ def _rank_main(run):
     args = dict(zip(sys.argv[1::2], sys.argv[2::2]))
     torch.set_num_threads(2)  # the ranks share the host's cores with the parent
     init_distributed(f"127.0.0.1:{args['--port']}", num_processes=int(args["--world"]),
-                     process_id=int(args["--rank"]), backend="gloo")
+                     process_id=int(args["--rank"]), backend="gloo",
+                     timeout=datetime.timedelta(seconds=RANK_TIMEOUT_S))
     precision.set_tf32(False)
     try:
         run(args)
@@ -2736,8 +2881,8 @@ def _free_port():
 def knobs_mesh(tmp, device="cuda", world=2):
     """Phase 16 (e): ``world`` gloo ranks sharing the one card against one
     process (float64, ``CARD_F64_RTOL``); then a one-rank NCCL group on
-    ``forest_best`` (float64) for one epoch through ``driver.run`` against
-    ``mesh=None``."""
+    ``forest_best`` (float64) for one epoch on ``ANALYSIS_ROWS`` train rows
+    through ``driver.run`` against ``mesh=None``."""
     from optwboundeigenval_tpu_torch.configs import forest_best
     from optwboundeigenval_tpu_torch.models.mlp_forest import ForestNet
     from optwboundeigenval_tpu_torch.parallel import init_distributed, make_mesh
@@ -2745,24 +2890,15 @@ def knobs_mesh(tmp, device="cuda", world=2):
 
     t0 = time.perf_counter()
     port = _free_port()
-    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--rank", str(r),
-                               "--world", str(world), "--port", str(port), "--out", tmp,
-                               "--device", device],
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-             for r in range(world)]
+    procs = _started([subprocess.Popen([sys.executable, os.path.abspath(__file__), "--rank",
+                                        str(r), "--world", str(world), "--port", str(port),
+                                        "--out", tmp, "--device", device],
+                                       stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+                      for r in range(world)])
     try:
         one = _mesh_runs(device)
-        outs = [p.communicate(timeout=600)[0].decode(errors="replace") for p in procs]
     finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-    for r, (p, text) in enumerate(zip(procs, outs)):
-        if p.returncode != 0:
-            log(text[-4000:])
-            fail(f"mesh rank {r} exited {p.returncode}")
-    ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
-             for r in range(world)]
+        ranks = _join_ranks(procs, tmp, "phase 16 (e)", MESH_WAIT_S)
     for label, want in one.items():
         for r, res in enumerate(ranks):
             got = res[label]
@@ -2785,10 +2921,11 @@ def knobs_mesh(tmp, device="cuda", world=2):
         for label, mesh in (("mesh=None", None),
                             ("one-rank NCCL mesh", make_mesh(device=None if device == "cuda"
                                                              else device))):
-            opts = forest_best.options(device=device, max_iter=1, mesh=mesh,
-                                       model=ForestNet().double(),
-                                       log_dir=f"{tmp}/{label}/logs",
-                                       model_dir=f"{tmp}/{label}/models")
+            opts = _train_rows(forest_best.options(device=device, max_iter=1, mesh=mesh,
+                                                   model=ForestNet().double(),
+                                                   log_dir=f"{tmp}/{label}/logs",
+                                                   model_dir=f"{tmp}/{label}/models"),
+                               ANALYSIS_ROWS["forest"])
             t1 = time.perf_counter()
             runs[label] = driver.run(opts)
             log(f"forest_best {label}: f {runs[label].f:.15g} rho {runs[label].rho:.15g}, "
@@ -2828,24 +2965,49 @@ def _spawn_ranks(tmp, device, world, phase, px=CXR_PX):
     """Start ``world`` gloo ranks of this script (``--rank``) for ``phase``;
     returns the processes."""
     port = _free_port()
-    return [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--rank", str(r),
-                              "--world", str(world), "--port", str(port), "--out", tmp,
-                              "--device", device, "--phase", phase, "--px", str(px)],
-                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-            for r in range(world)]
+    return _started([subprocess.Popen([sys.executable, os.path.abspath(__file__), "--rank",
+                                       str(r), "--world", str(world), "--port", str(port),
+                                       "--out", tmp, "--device", device, "--phase", phase,
+                                       "--px", str(px)],
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+                     for r in range(world)])
 
 
-def _join_ranks(procs, tmp, label, timeout=600):
-    """Wait for the ranks; fail on any exit but 0; their saved results."""
+def _started(procs):
+    """Register rank processes, so that the watchdog can kill them."""
+    _RUN["ranks"].extend(procs)
+    return procs
+
+
+def _kill_ranks(procs=None):
+    for p in _RUN["ranks"] if procs is None else procs:
+        if p.poll() is None:
+            p.kill()
+
+
+def _join_ranks(procs, tmp, label, wait):
+    """Wait at most ``wait`` s (never more than ``RANK_WAIT_MAX_S``) for the
+    ranks of phase ``label``; fail on any exit but 0, and when the wait
+    expires kill them and fail after printing each rank's last 4,000
+    characters.  Returns their saved results."""
+    wait = min(wait, RANK_WAIT_MAX_S)
+    end = time.monotonic() + wait
+    outs = []
     try:
-        outs = [p.communicate(timeout=timeout)[0].decode(errors="replace") for p in procs]
-    finally:
         for p in procs:
-            if p.poll() is None:
-                p.kill()
+            outs.append(p.communicate(timeout=max(end - time.monotonic(), 0.1))[0])
+    except subprocess.TimeoutExpired:
+        _kill_ranks(procs)
+        for r, p in enumerate(procs):
+            text = (outs[r] if r < len(outs) else p.communicate()[0]).decode(errors="replace")
+            log(f"--- {label}: rank {r}, exit {p.returncode}, its last 4,000 characters ---")
+            log(text[-4000:])
+        fail(f"{label}: the ranks did not finish within the {wait:.0f} s wait")
+    finally:
+        _kill_ranks(procs)
     for r, (p, text) in enumerate(zip(procs, outs)):
         if p.returncode != 0:
-            log(text[-4000:])
+            log(text.decode(errors="replace")[-4000:])
             fail(f"{label}: rank {r} exited {p.returncode}")
     return [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
             for r in range(len(procs))]
@@ -2890,8 +3052,9 @@ def _collectives_counted(mesh):
 def _tp_cxr_step(device, f64, mesh=None, px=CXR_PX):
     """Phase 17 (a) on this rank (``mesh``, its large leaves sharded at the
     default ``min_elems``) or one process: one ``chestxray_mu0_01_K0``
-    ``train_step`` with ``hvp_micro=2`` from the config's seed, float32 at
-    ``px`` (224) and batch 4, or float64 at 64 px and batch 2.  Every K1
+    ``train_step`` with ``hvp_micro=2`` and at most ``F64_POW_ITERS`` HVPs
+    (a cut for time) from the config's seed, float32 at ``px`` (224) and
+    batch 4, or float64 at 64 px and batch 2.  Every K1
     call of the step is held bit for bit against its plain version on
     the same leaves.  Returns the metrics, the eval-mode ``f`` of the
     batch before the step, the gathered params, their update, the Adam
@@ -2899,9 +3062,7 @@ def _tp_cxr_step(device, f64, mesh=None, px=CXR_PX):
     the alignment of its deltas and the plain comparison, the bytes
     held, the device memory allocated at the step's start and at its
     peak (above what the process held before the trainer), the step's
-    seconds, its all-reduces and column assemblies with their bytes,
-    and, at float32 on the card, one more step profiled (wall ms,
-    device-busy ms, kernels)."""
+    seconds, its all-reduces and column assemblies with their bytes."""
     from optwboundeigenval_tpu_torch.configs import chestxray_mu0_01_K0 as cfg
     from optwboundeigenval_tpu_torch.ops import curvature
     from optwboundeigenval_tpu_torch.ops import pallas_kernels as pk
@@ -2915,7 +3076,8 @@ def _tp_cxr_step(device, f64, mesh=None, px=CXR_PX):
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
     opts = cfg.options(device=device, hvp_micro=2, batch_size=rows, mesh=mesh,
-                       **cxr_loaders((rows, rows, rows), px, rows))
+                       **cxr_loaders((rows, rows, rows), px, rows),
+                       max_pow_iter=F64_POW_ITERS)
     tr = build_trainer(opts)
     if f64:
         _as_f64(tr)
@@ -2991,10 +3153,7 @@ def _tp_cxr_step(device, f64, mesh=None, px=CXR_PX):
             "sharded": (len(dims), sum(tr._sharding.shapes[k].numel() for k in dims)
                         if dims else 0),
             "leaves": len(tr.params), "values": tr.ndim, "bytes": (held, full),
-            "collectives": collectives,
-            "profile": (phase_profile(tr, batch, f"model axis, chestxray f32 {px} px, "
-                                      + ("one process" if mesh is None else f"rank {mesh.rank}"))
-                        if cuda and not f64 else None)}
+            "collectives": collectives}
 
 
 def _tp_dryrun(device, mesh=None):
@@ -3132,7 +3291,8 @@ def tp_model_axis_cxr(device="cuda", px=CXR_PX):
     if device == "cuda":
         torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
-        ranks = _join_ranks(_spawn_ranks(tmp, device, 2, "tp2", px), tmp, "phase 17 (a)")
+        ranks = _join_ranks(_spawn_ranks(tmp, device, 2, "tp2", px), tmp, "phase 17 (a)",
+                            TP2_WAIT_S)
     for prec, bound in (("f32", CARD_F32_RTOL), ("f64", CARD_F64_RTOL)):
         want = one[prec]
         held, full = ranks[0][prec]["bytes"]
@@ -3188,8 +3348,8 @@ def tp_model_axis_cxr(device="cuda", px=CXR_PX):
 
 def _tp_cost(one, ranks, px, device):
     """Phase 17 (a)'s cost at float32, one process and each rank, every
-    number beside the card's name and power limit: the step's seconds,
-    one profiled step's device-busy ms and kernels, the step's
+    number beside the card's name and power limit: the step's seconds, the
+    step's
     ``model``-group all-reduces and column assemblies with their bytes
     (on ``data=1 x model=2`` the ``model`` group is the world), its peak
     above the process's prior allocation, the bytes of params, ``v`` and
@@ -3201,12 +3361,9 @@ def _tp_cost(one, ranks, px, device):
         f"weights would all-reduce {4 * values} B a forward; the step ran "
         f"{assemblies / max(n, 1):.0f} forwards through them")
     for label, res in [("one process", one)] + [(f"rank {r}", x) for r, x in enumerate(ranks)]:
-        c, prof = res["collectives"], res["profile"]
-        busy = ("not measured" if prof is None else
-                f"{prof[1]:.1f} ms busy of {prof[0]:.1f} ms wall ({100 * prof[1] / prof[0]:.1f}%), "
-                f"{prof[2]} kernels")
+        c = res["collectives"]
         log(f"model axis cost, chestxray f32 {px} px, {label} ({card}): step "
-            f"{res['seconds']:.2f} s; one profiled step {busy}; model-group all-reduces "
+            f"{res['seconds']:.2f} s; model-group all-reduces "
             f"{c['model-group all-reduces']} ({c['model-group bytes']} B) of "
             f"{c['all-reduces']} ({c['bytes']} B), of them column assemblies "
             f"{c['column assemblies']} ({c['assembled bytes']} B); step peak above the prior "
@@ -3223,7 +3380,7 @@ def tp_dp_tp(device="cuda"):
         try:
             one = {"dryrun": _tp_dryrun(device), "loop": _tp_loop(device, tmp)}
         finally:
-            ranks = _join_ranks(procs, tmp, "phase 17 (b, c)")
+            ranks = _join_ranks(procs, tmp, "phase 17 (b, c)", TP4_WAIT_S)
     if [r["coords"] for r in ranks] != [(0, 0), (0, 1), (1, 0), (1, 1)]:
         fail(f"mesh coordinates {[r['coords'] for r in ranks]}")
     for r, res in enumerate(ranks):
@@ -3361,7 +3518,7 @@ def bf16_recipe(device="cuda", rows=128):
     return launches
 
 
-def hvp_rates(device="cuda", batch=128, reps=3, counts=(2, 8)):
+def hvp_rates(device="cuda", batch=128, reps=1, counts=(2, 8)):
     """Phase 18 (a): the JAX bench's DenseNet-40 HVP rate (``bench.py``,
     batch 128, ``remat``: each HVP recomputes forward and gradient) at
     bfloat16 and at float32 compute: HVPs/s from the difference of two
@@ -3442,10 +3599,11 @@ def bf16_k1_steps(device="cuda", steps=2):
     return pk.axpy_accumulate.launches
 
 
-def bf16_cxr(device="cuda", px=CXR_PX, rows=(8, 4, 4)):
+def bf16_cxr(device="cuda", px=CXR_PX, rows=(4, 4, 4)):
     """Phase 18 (c): ``chestxray_mu0_01_K0`` with ``CXRModel(densenet121)``
-    at bfloat16 compute, 224 px, batch 4, 2 steps through ``driver.run``
-    (the stand-ins of phase 13, cut to 4 rows of each evaluation set).
+    at bfloat16 compute, 224 px, batch 4, one step through ``driver.run``
+    (the stand-ins of phase 13, cut to 4 rows of each set; 2 steps on 8
+    train rows before the time budget).
     Returns K1's launches (none)."""
     from optwboundeigenval_tpu_torch.configs import chestxray_mu0_01_K0 as cfg
     from optwboundeigenval_tpu_torch.models.cxr import CXRModel
@@ -3511,7 +3669,7 @@ def bf16_card_vs_card(device="cuda"):
         fail("bf16 step on the card: disagrees with the float32 step")
 
 
-def bf16_card_vs_cpu(device="cuda", batch_size=8):
+def bf16_card_vs_cpu(device="cuda", batch_size=4):
     """Phase 18 (d), second half: a bfloat16 forward, gradient and HVP of
     DenseNet-40 on the card against the port's bfloat16 on the CPU, within
     the tests' rule with the CPU's bfloat16 value as ``jb`` and its float32
@@ -3612,13 +3770,272 @@ def phase_dtype(device="cuda"):
     return launches
 
 
+# phase 19: the Asymmetric Valley trainer under a mesh and the micro-batched
+# step on a data mesh.  AV as usps_cnn_asymmetric_valley publishes it but
+# cut to 4 epochs (SWA from 2, the hunt from 3) and a 5-point sweep
+# (distances 1, division_part 2), for time
+AV_MESH = dict(max_iter=4, swa_start=2, sgd_start=3, save_freq=1, eval_freq=1,
+               distances=1, division_part=2)
+# the first rows of each split: on the full stand-in (6,250 train rows, 196
+# steps) the float64 run is chaotic, a 1e-15 relative change of the initial
+# weights moving the sweep's losses by 1.2e-3 and the ranks' summation order
+# by up to 3.5e-6 (CPU, PERF.md section 6), beyond CARD_F64_RTOL
+AV_ROWS = {"train_loader": 512, "valid_loader": 256, "train_loader_na": 512,
+           "test_loader": 256}
+AV_RESULTS = ("train_loss", "test_loss", "train_acc", "test_acc")
+AV_SHARDED = ["conv2.weight", "conv3.weight", "fc1.weight"]  # at min_elems=1024
+MICRO_ROWS = 8  # the float64 DenseNet-40 step's global batch: 4 rows a rank
+
+
+def _peak_reset(device):
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _peak(device):
+    return torch.cuda.max_memory_allocated() if device == "cuda" else 0
+
+
+@contextlib.contextmanager
+def _f_per_epoch():
+    """The Asymmetric Valley trainer's epoch ``f`` at full precision, one
+    value an epoch (its log prints 6 decimals), while the block runs."""
+    from optwboundeigenval_tpu_torch.train.asymmetric_valley import AsymmetricValleyTrainer
+
+    fs, real = [], AsymmetricValleyTrainer.train_epoch
+
+    def recording(self, loader):
+        out = real(self, loader)
+        fs.append(self.f)
+        return out
+
+    AsymmetricValleyTrainer.train_epoch = recording
+    try:
+        yield fs
+    finally:
+        AsymmetricValleyTrainer.train_epoch = real
+
+
+def av_mesh_run(device, tmp, mesh=None):
+    """Phase 19 (a): ``usps_cnn_asymmetric_valley`` at float64 with
+    ``AV_MESH``, through ``driver.run`` in one process or on ``data=2``
+    (each rank its block of the config's global batches); on ``data=1 x
+    model=2`` built by ``driver.build_trainer``, CNNUSPS's ``conv2``,
+    ``conv3`` and ``fc1`` sharded at ``min_elems=1024`` and trained as
+    ``driver.run`` trains it.  Where the hunt finds no SGD point the sweep
+    runs from the last SGD weights (as phase 12 does), so it runs on every
+    process.  Returns ``f`` per epoch, rank 0's results (none elsewhere),
+    the gathered SWA params, the steps, seconds and peak device memory."""
+    from optwboundeigenval_tpu_torch.configs import usps_cnn_asymmetric_valley as cfg
+    from optwboundeigenval_tpu_torch.data.loaders import ArrayLoader
+    from optwboundeigenval_tpu_torch.models.cnn_usps import CNNUSPS
+    from optwboundeigenval_tpu_torch.parallel import shard_params
+    from optwboundeigenval_tpu_torch.train import driver
+
+    opts = cfg.options(device=device, mesh=mesh, model=CNNUSPS().double(),
+                       log_dir=f"{tmp}/logs", model_dir=f"{tmp}/models",
+                       plot_dir=f"{tmp}/plots", **AV_MESH)
+    for key, n in AV_ROWS.items():
+        old = opts[key]
+        cut = lambda l: ArrayLoader(l.x[:n], l.y[:n], l.batch_size, shuffle=l.shuffle, seed=5)
+        opts[key] = [cut(l) for l in old] if isinstance(old, list) else cut(old)
+    _peak_reset(device)
+    _sync(device)
+    t0 = time.perf_counter()
+    with _f_per_epoch() as f:
+        if mesh is None or mesh.model == 1:
+            tr = driver.run(opts)
+        else:
+            tr = driver.build_trainer(opts)
+            tr.init_state()
+            tr.params = shard_params(tr.params, mesh, 1024, tr.task.model)
+            tr.train(train_loader=opts["train_loader"], valid_loader=opts["valid_loader"])
+    hunted = tr.sgd_path is not None
+    if not tr.interpolated:
+        tr.sgd_path = tr._save_full("sgd_last")
+        tr.interpolation(opts["train_loader"], opts["valid_loader"])
+    _sync(device)
+    out = {"seconds": time.perf_counter() - t0, "peak": _peak(device), "hunted": hunted,
+           "f": f,
+           "interpolated": tr.interpolated, "swa_n": tr.swa_n, "steps": tr.steps_done,
+           "swa": {k: t.detach().cpu() for k, t in tr._full(tr.swa_params).items()},
+           "sharded": sorted(tr._sharding.dims) if tr._sharding is not None else [],
+           "on_card": all(t.device.type == torch.device(device).type
+                          for t in tr.params.values())}
+    if tr._writer:
+        out["results"] = {k: np.loadtxt(os.path.join(tr.log_dir,
+                                                      f"asymmetric_valley_{k}_results.txt"))
+                          for k in AV_RESULTS}
+    return out
+
+
+def av_mesh_micro(device, mesh=None, steps=1):
+    """Phase 19 (b): the DenseNet-40 recipe (full width) at float64 with
+    ``hvp_micro=2, remat=False`` and ``F64_POW_ITERS`` HVPs at most,
+    ``steps`` steps on the first
+    ``MICRO_ROWS`` rows a step in their natural order (on ``data=2`` each
+    rank its block: 4 rows in 2 micro-batches, its share of the global
+    micro-batches), every K1 call held bit for bit to its plain version.
+    Returns ``rho``, ``g``, ``pow_iters``, params and BatchNorm statistics,
+    K1's launches and checked calls, seconds and peak device memory."""
+    from optwboundeigenval_tpu_torch.data.loaders import ArrayLoader
+    from optwboundeigenval_tpu_torch.ops import pallas_kernels as pk
+    from optwboundeigenval_tpu_torch.parallel import shard_batch
+
+    tr, na = _f64_trainer(device, batch_size=MICRO_ROWS, mesh=mesh, hvp_micro=2,
+                          remat=False, **F64_CAP)
+    rows = MICRO_ROWS * steps
+    batches = list(ArrayLoader(na.x[:rows], na.y[:rows], MICRO_ROWS))
+    if mesh is not None:
+        batches = [shard_batch(b, mesh) for b in batches]
+    metrics = []
+    _peak_reset(device)
+    _sync(device)
+    t0 = time.perf_counter()
+    pk.axpy_accumulate.launches = 0
+    with _k1_recorded() as rec:
+        for b in batches:
+            metrics.append(tr.train_step(b))
+    _sync(device)
+    return {"seconds": time.perf_counter() - t0, "peak": _peak(device),
+            "launches": pk.axpy_accumulate.launches, "calls": rec["calls"],
+            "mismatched": _mismatched(rec),
+            "m": [{k: m[k] for k in ("rho", "g", "pow_iters", "step_ok")} for m in metrics],
+            "params": {k: t.detach().cpu() for k, t in tr.params.items()},
+            "stats": {k: t.detach().cpu() for k, t in tr.model_state.items()}}
+
+
+def av_rank(args):
+    """One rank of phase 19, started by :func:`phase_av_mesh`: (a) on
+    ``data=2``, then on ``data=1 x model=2``; (b) on ``data=2``."""
+    from optwboundeigenval_tpu_torch.parallel import make_mesh
+
+    device, rank, tmp = args["--device"], args["--rank"], args["--out"]
+    at = None if device == "cuda" else device
+    data2, model2 = make_mesh(data=2, device=at), make_mesh(data=1, model=2, device=at)
+    out = {"data": av_mesh_run(device, f"{tmp}/rank{rank}/data", data2),
+           "model": av_mesh_run(device, f"{tmp}/rank{rank}/model", model2),
+           "micro": av_mesh_micro(device, data2)}
+    torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+
+
+def _av_errs(got, want):
+    """Relative errors of an AV run against one process's: the SWA params,
+    ``f`` per epoch and, on rank 0, the four results arrays."""
+    errs = {"SWA params": _rel(got["swa"], want["swa"]),
+            "f per epoch": _rel(torch.tensor(got["f"]), torch.tensor(want["f"]))}
+    if "results" in got:
+        errs.update({k: _rel(torch.from_numpy(np.atleast_1d(got["results"][k])),
+                             torch.from_numpy(np.atleast_1d(want["results"][k])))
+                     for k in AV_RESULTS})
+    return errs
+
+
+def phase_av_mesh(device="cuda"):
+    """Phase 19: one spawn of 2 gloo ranks sharing the card runs (a) and (b)
+    while this process runs them alone; every rank against one process
+    within ``CARD_F64_RTOL``.  Returns K1's launches on rank 0."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = _spawn_ranks(tmp, device, 2, "av")
+        try:
+            one = {"av": av_mesh_run(device, f"{tmp}/one"), "micro": av_mesh_micro(device)}
+        finally:
+            ranks = _join_ranks(procs, tmp, "phase 19", AV_WAIT_S)
+    want = one["av"]
+    log(f"phase 19 (a) usps_cnn_asymmetric_valley float64, one process: {want['steps']} steps "
+        f"in {AV_MESH['max_iter']} epochs, {want['seconds']:.2f} s, peak {want['peak']} B, "
+        f"swa_n {want['swa_n']}, the hunt found an SGD point: {want['hunted']}, f per epoch "
+        f"{want['f']}, valid accuracy along the sweep {want['results']['test_acc'].tolist()}")
+    if not (want["on_card"] and want["interpolated"] and want["swa_n"] >= 1
+            and all(math.isfinite(f) for f in want["f"])):
+        fail(f"phase 19 (a): the one-process run {want}")
+    for axes in ("data", "model"):
+        for r, res in enumerate(ranks):
+            got = res[axes]
+            log(f"phase 19 (a) {axes} axis, rank {r}: {got['steps']} steps, "
+                f"{got['seconds']:.2f} s against {want['seconds']:.2f} s in one process, peak "
+                f"{got['peak']} B, sharded {got['sharded']}, swa_n {got['swa_n']}, hunted "
+                f"{got['hunted']}")
+            if (got["swa_n"], got["hunted"], got["steps"]) != (
+                    want["swa_n"], want["hunted"], want["steps"]) or not got["on_card"]:
+                fail(f"phase 19 (a) {axes}: rank {r} took another course than one process")
+            if got["sharded"] != (AV_SHARDED if axes == "model" else []):
+                fail(f"phase 19 (a) {axes}: rank {r} sharded {got['sharded']}")
+            if (r == 0) != ("results" in got) or len(got["f"]) != AV_MESH["max_iter"]:
+                fail(f"phase 19 (a) {axes}: rank {r} wrote the results: {'results' in got}, "
+                     f"f over {len(got['f'])} epochs")
+            _tp_check(f"phase 19 (a) AV on {axes}={2}, rank {r} vs one process",
+                      _av_errs(got, want), CARD_F64_RTOL)
+    want = one["micro"]
+    for r, res in enumerate(ranks):
+        got = res["micro"]
+        for i, (m, w) in enumerate(zip(got["m"], want["m"])):
+            expected = 2 * (m["pow_iters"] + 2)
+            log(f"phase 19 (b) DenseNet-40 float64 hvp_micro=2 data=2, rank {r} step {i}: rho "
+                f"{m['rho']:.12g} pow_iters {m['pow_iters']} g {m['g']:.6g}; one process rho "
+                f"{w['rho']:.12g} pow_iters {w['pow_iters']}")
+            if m["pow_iters"] != w["pow_iters"] or not m["step_ok"]:
+                fail(f"phase 19 (b): rank {r} step {i} {m} against one process {w}")
+        expected = sum(2 * (m["pow_iters"] + 2) for m in got["m"])
+        log(f"phase 19 (b) rank {r}: {got['seconds']:.2f} s against {want['seconds']:.2f} s "
+            f"in one process, peak {got['peak']} B against {want['peak']} B; K1 launches "
+            f"{got['launches']} (expected {expected}), {got['calls']} calls held to the plain "
+            f"version, {got['mismatched']} leaves differing")
+        if device == "cuda" and (got["launches"] != expected or got["calls"] != expected):
+            fail(f"phase 19 (b): rank {r} K1 launches {got['launches']}, checked calls "
+                 f"{got['calls']}, expected {expected}")
+        if got["mismatched"]:
+            fail(f"phase 19 (b): rank {r}'s K1 and its plain version differ")
+        errs = {k: _rel(torch.tensor([m[k] for m in got["m"]]),
+                        torch.tensor([m[k] for m in want["m"]])) for k in ("rho", "g")}
+        errs["params"] = _rel(got["params"], want["params"])
+        errs["BatchNorm statistics"] = _rel(
+            {k: t for k, t in got["stats"].items() if t.is_floating_point()},
+            {k: t for k, t in want["stats"].items() if t.is_floating_point()})
+        _tp_check(f"phase 19 (b) rank {r} vs one process", errs, CARD_F64_RTOL)
+    log(f"phase 19: {time.perf_counter() - t0:.1f} s")
+    return ranks[0]["micro"]["launches"]
+
+
+def _watchdog(t0, deadline=DEADLINE_S):
+    """At ``deadline`` s after ``t0``: name the phase in progress, kill every
+    rank process still alive, dump all threads' stacks and exit 1."""
+    def fire():
+        log(f"WATCHDOG: {time.perf_counter() - t0:.0f} s since the start, past the "
+            f"{deadline} s deadline, in {_RUN['phase']}; killing the ranks")
+        _kill_ranks()
+        faulthandler.dump_traceback(file=sys.stdout, all_threads=True)
+        sys.stdout.flush()
+        os._exit(1)
+
+    timer = threading.Timer(max(deadline - (time.perf_counter() - t0), 0.0), fire)
+    timer.daemon = True
+    timer.start()
+    return timer
+
+
 def main():
     if "--rank" in sys.argv:
-        return _rank_main(tp_rank if "--phase" in sys.argv else mesh_rank)
+        phase = dict(zip(sys.argv[1::2], sys.argv[2::2])).get("--phase")
+        return _rank_main({None: mesh_rank, "tp2": tp_rank, "tp4": tp_rank,
+                           "av": av_rank}[phase])
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs an NVIDIA GPU")
     t0 = time.perf_counter()
-    done = lambda phase: log(f"[{time.perf_counter() - t0:.0f} s] {phase} done")
+    _watchdog(t0)
+    times = []
+
+    def begin(phase):
+        _RUN["phase"], _RUN["since"] = phase, time.perf_counter()
+
+    def done(phase):
+        now = time.perf_counter()
+        times.append((phase, now - _RUN["since"]))
+        log(f"[{now - t0:.0f} s] {phase} done, {now - _RUN['since']:.1f} s")
+        begin(f"the phase after {phase}")
+
+    begin("phases 1-2")
     smi = phase_card()
     phase_build()
     done("phases 1-2")
@@ -3634,7 +4051,7 @@ def main():
         phase_profile(tr, b, label)
         launches += n
         power_hvps[label] = tr.mean_pow_iters
-        steps, g = 2 * len(tr.epoch_pow_iters), tr.timers.totals["G"]
+        steps, g = EPOCHS * len(tr.epoch_pow_iters), tr.timers.totals["G"]
         rates[label] = (steps / g, tr.mean_pow_iters)
     done("phase 7")
     tr, b, n = phase_densenet_epoch()
@@ -3662,6 +4079,12 @@ def main():
     done("phase 17")
     launches += phase_dtype()
     done("phase 18")
+    launches += phase_av_mesh()
+    done("phase 19")
+    total = time.perf_counter() - t0
+    log("phase seconds: " + ", ".join(f"{p} {t:.1f}" for p, t in times)
+        + f"; total {total:.1f} s of the {BUDGET_S} s budget"
+        + ("" if total <= BUDGET_S else f", OVER BUDGET by {total - BUDGET_S:.1f} s"))
     kernels = [{**entry, "launches": launches}]
     log(json.dumps({"kernels": kernels}))
     log(smi)

@@ -11,6 +11,7 @@ reference's RandomAffine translate(0.1) + HFlip
 
 from __future__ import annotations
 
+import functools
 import os
 import pickle
 
@@ -45,15 +46,25 @@ def _load_pickle_batches(root: str, name: str, train: bool):
     return x.astype(np.float32) / 255.0, np.asarray(ys, np.int32)
 
 
+@functools.lru_cache(maxsize=None)
+def _stand_in(name: str, train: bool):
+    """The synthetic stand-in, drawn once a process and read-only: a config
+    of the CIFAR family draws it three times a build."""
+    ncls = 10 if name == "cifar10" else 100
+    n = min(50000 if train else 10000, 4096)
+    x, y = make_images(n, shape=(32, 32, 3), n_classes=ncls,
+                       seed=SEED if train else SEED + 1)
+    x.setflags(write=False)
+    y.setflags(write=False)
+    return x, y
+
+
 def load_cifar(root: str = "./data", name: str = "cifar10", train: bool = True):
     """``(x, y)`` with ``x`` NHWC float32 in [0, 1]."""
     out = _load_pickle_batches(root, name, train)
     if out is not None:
         return out
-    ncls = 10 if name == "cifar10" else 100
-    n = min(50000 if train else 10000, 4096)
-    return make_images(n, shape=(32, 32, 3), n_classes=ncls,
-                       seed=SEED if train else SEED + 1)
+    return _stand_in(name, train)
 
 
 def get_train_valid_loader(

@@ -38,8 +38,13 @@ returns the sum of the ranks' shares, one all-reduce of all leaves: the
 gradient and its loss, each HVP (``hvp``, ``linearize_hvp``'s and
 ``recompute_hvp``'s maps) and the vGHv.  A micro-batched product sums
 its slices on the rank first (the accumulate kernel runs on local sums)
-and reduces once; slice ``i`` is then every rank's slice ``i``, whose
-BatchNorm statistics and weight are taken over the ranks together.
+and reduces once.  Slice ``i`` is the JAX package's micro-batch ``i``,
+rows ``[i*mb, (i+1)*mb)`` of the global batch (the ranks' local batches
+laid end to end in data-coordinate order), of which rank ``c`` of ``d``
+takes its share, rows ``[i*mb + c*mb/d, i*mb + (c+1)*mb/d)``: the
+ranks' batches are exchanged once a product over the ``data`` group,
+and the slice's BatchNorm statistics, dropout masks and weight are
+those of the global slice.
 Under a sharding (``parallel/sharding.py``) the products of a sharded
 leaf are this rank's slice, summed over its ``data`` group, and those of
 a replicated leaf are summed over the world (``mesh.all_sum_tree``, the
@@ -168,15 +173,23 @@ def _batch_weight(batch) -> torch.Tensor:
 
 
 def _micro_batches(batch, num_micro: int):
-    """Yield ``(micro_batch, scale_m)`` over contiguous slices."""
+    """Yield ``(micro_batch, scale_m)``: this rank's share of each of the
+    global batch's ``num_micro`` contiguous slices (the whole slice
+    without a data mesh)."""
     lead = len(next(iter(batch.values())))
     if lead % num_micro:
         raise ValueError(f"batch of {lead} does not split into {num_micro} "
                          "equal micro-batches")
-    mb = lead // num_micro
+    share = lead // num_micro  # this rank's rows of a slice
     w_total = torch.clamp_min(_batch_weight(batch), 1e-12)
+    mesh = meshlib.current()
+    first, mb = 0, share
+    if mesh is not None and mesh.data > 1:
+        batch = {k: meshlib.all_gather_rows(t, mesh, "data") for k, t in batch.items()}
+        first, mb = mesh.data_coord * share, mesh.data * share
     for i in range(num_micro):
-        mbatch = {k: t[i * mb:(i + 1) * mb] for k, t in batch.items()}
+        lo = i * mb + first
+        mbatch = {k: t[lo:lo + share] for k, t in batch.items()}
         yield mbatch, _batch_weight(mbatch) / w_total
 
 

@@ -61,17 +61,21 @@ _ACTIVE = contextvars.ContextVar("mesh", default=(None, None))
 def init_distributed(coordinator: Optional[str] = None, *,
                      num_processes: Optional[int] = None,
                      process_id: Optional[int] = None,
-                     backend: Optional[str] = None, device=None) -> None:
+                     backend: Optional[str] = None, device=None, **kw) -> None:
     """Join the process group of ``num_processes`` ranks at ``coordinator``
     (``host:port``) as rank ``process_id``; a no-op without a coordinator
     (one process).  ``backend`` defaults to NCCL for a rank on the card
-    (``device`` None or CUDA) and gloo for ``device="cpu"``."""
+    (``device`` None or CUDA) and gloo for ``device="cpu"``.  The other
+    keywords go to ``dist.init_process_group``, as the JAX package's go to
+    ``jax.distributed.initialize``: ``timeout=datetime.timedelta(...)``
+    bounds how long a collective waits for a rank that never makes it
+    (gloo's default is 30 minutes)."""
     if coordinator is None:
         return
     if backend is None:
         backend = "gloo" if device is not None and torch.device(device).type == "cpu" else "nccl"
     dist.init_process_group(backend=backend, init_method=f"tcp://{coordinator}",
-                            world_size=num_processes, rank=process_id)
+                            world_size=num_processes, rank=process_id, **kw)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)

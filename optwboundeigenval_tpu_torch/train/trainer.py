@@ -167,6 +167,16 @@ CKPT_BEST = "_trained_model_best.pt"
 CKPT_FULL = "_full.pt"
 
 
+def _check_batch_counts(loader, mesh) -> None:
+    """Raise unless every rank of ``mesh`` yields as many batches from its
+    ``loader`` (a loop of collectives would hang on the odd one out)."""
+    counts = torch.tensor([len(loader)], device=mesh.device)
+    counts = meshlib.all_gather_rows(counts, mesh).tolist()
+    if min(counts) != max(counts):
+        raise ValueError(f"loaders yield unequal batch counts {counts} across ranks; "
+                         "pad the dataset so every rank yields as many batches")
+
+
 def _as_loader(data, batch_size) -> ArrayLoader:
     if isinstance(data, ArrayLoader):
         return data
@@ -1147,11 +1157,7 @@ class SpectralTrainer:
         after the gather; the outputs keep their dtype (JAX casts them to
         float32)."""
         mesh = self.mesh
-        counts = torch.tensor([len(loader)], device=mesh.device)
-        counts = meshlib.all_gather_rows(counts, mesh).tolist()
-        if min(counts) != max(counts):
-            raise ValueError(f"eval loaders yield unequal batch counts {counts} across "
-                             "ranks; pad the dataset so every rank yields as many batches")
+        _check_batch_counts(loader, mesh)
         sharded = getattr(loader, "host_shard", None) is not None
         split = self._sharding is not None
         contributes = self._eval_is_contributor() if sharded or split else True

@@ -44,6 +44,7 @@ the same scenarios with no mesh.  The tests then compare:
 
 import contextlib
 import dataclasses
+import datetime
 import os
 import socket
 import subprocess
@@ -457,19 +458,6 @@ def _dropout_batch():
     return _batch(x.astype(np.float64), y, np.ones(CXR_ROWS))
 
 
-def _micro_order(mesh, rows, micro=2):
-    """The order of the global batch's rows whose ``data`` shards hold the
-    one-process micro-batches: slice ``i`` of data coordinate ``d`` holds
-    the ``d``-th part of the global slice ``i``, so micro-batched BatchNorm
-    statistics and dropout masks are one process's (the identity with one
-    data coordinate)."""
-    if mesh is None or mesh.data == 1:
-        return np.arange(rows)
-    mb = rows // mesh.data // micro
-    return np.array([i * (rows // micro) + d * mb + j for d in range(mesh.data)
-                     for i in range(micro) for j in range(mb)])
-
-
 STEP = dict(mu=0.05, K=0.0, batch_size=CXR_ROWS, max_pow_iter=4, pow_iter_eps=1e-12,
             ignore_bad_vals=False)
 STEP_LEGS = {"plain": {}, "remat": {"remat": True}, "micro": {"hvp_micro": 2}}
@@ -507,13 +495,7 @@ def spectral(weights, mesh, tmp):
         masks = (dropout.inject(lambda _key, site, shape: table[(site, shape)]) if table
                  else contextlib.nullcontext())
 
-        def local(micro):
-            if mesh is None:
-                return glob
-            order = _micro_order(mesh, CXR_ROWS) if micro else np.arange(CXR_ROWS)
-            return meshlib.shard_batch({k: t[order] for k, t in glob.items()}, mesh)
-
-        b, bm = local(False), local(True)
+        b = glob if mesh is None else meshlib.shard_batch(glob, mesh)
         sh = None
         if mesh is not None:
             sh = sharding_of(params, mesh, MIN_ELEMS, task.model)
@@ -525,9 +507,9 @@ def spectral(weights, mesh, tmp):
                    "vghv": curvature.vghv(loss_fn, params, b, v)}
             res["remat_grad"], hvp_fn = curvature.recompute_hvp(loss_fn, params, b)
             res["remat_hv"] = hvp_fn(v)
-            res["micro_grad"] = curvature.grad_microbatched(loss_fn, params, bm, 2)
-            res["micro_hv"] = curvature.hvp_microbatched(loss_fn, params, bm, v, 2)
-            res["micro_vghv"] = curvature.vghv_microbatched(loss_fn, params, bm, v, 2)
+            res["micro_grad"] = curvature.grad_microbatched(loss_fn, params, b, 2)
+            res["micro_hv"] = curvature.hvp_microbatched(loss_fn, params, b, v, 2)
+            res["micro_vghv"] = curvature.vghv_microbatched(loss_fn, params, b, v, 2)
             if sh is not None:
                 res = {k: sh.gather_tree(t) for k, t in res.items()}
         for leg, kw in STEP_LEGS.items():
@@ -536,7 +518,7 @@ def spectral(weights, mesh, tmp):
             if mesh is not None:
                 tr.params = shard_params(tr.params, mesh, MIN_ELEMS, task.model)
                 tr.v = shard_params(tr.v, mesh, MIN_ELEMS, task.model)
-            m = tr.train_step(bm if kw.get("hvp_micro") else b)
+            m = tr.train_step(b)
             full = tr._full(tr.params)
             res[f"step_{leg}"] = {"rho": m["rho"], "pow_iters": m["pow_iters"],
                                   "update": {k: full[k] - p0[k] for k in p0}}
@@ -1289,7 +1271,7 @@ def test_forward_all_reduces_one_per_sharded_layer(worlds, world):
 if __name__ == "__main__":  # one rank of the ``worlds`` fixture
     rank, world, port, tmp = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
     meshlib.init_distributed(f"127.0.0.1:{port}", num_processes=world, process_id=rank,
-                             device="cpu")
+                             device="cpu", timeout=datetime.timedelta(seconds=120))
     data, model = WORLDS[world]
     mesh = meshlib.make_mesh(data=data, model=model, device="cpu")
     weights = torch.load(os.path.join(tmp, "weights.pt"), weights_only=False)
