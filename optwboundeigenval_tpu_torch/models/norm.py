@@ -49,6 +49,7 @@ import torch
 from torch import nn
 
 from optwboundeigenval_tpu_torch.parallel import mesh as meshlib
+from optwboundeigenval_tpu_torch.utils import timing
 
 
 class BatchNorm2d(nn.Module):
@@ -85,7 +86,8 @@ class BatchNorm2d(nn.Module):
                 y = x - mean[None, :, None, None]
                 var = (y * y).mean(dims)
             else:
-                n = int(meshlib.all_sum(torch.tensor(n, device=x.device)))
+                n = int(timing.read("norm.count", meshlib.all_sum(
+                    timing.to_device("norm.count", n, x.device))))
                 mean = meshlib.all_sum_diff(x.sum(dims)) / n
                 y = x - mean[None, :, None, None]
                 var = meshlib.all_sum_diff((y * y).sum(dims)) / n

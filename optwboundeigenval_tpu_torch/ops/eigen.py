@@ -21,7 +21,11 @@ Reference ``comp_rho`` (opt.py:418-533), kept exactly:
 
 The JAX ``lax.while_loop`` becomes a Python loop.  Its stop test reads
 one boolean back to the host every iteration: one device sync per HVP,
-a known cost of this port (the JAX loop runs inside one program).
+a known cost of this port (the JAX loop runs inside one program).  Each
+operator call is a span ``eigen.product``, and each host read or copy
+of a solver a host synchronisation (``utils/timing.py``): ``eigen.stop``
+for the stop tests and the Lanczos tridiagonal's read, ``eigen.h2d`` for
+the host-side Ritz results copied back to the device.
 
 The subspace and Lanczos solvers work on one flat vector per tree
 (``tree_ravel``; the operator sees the tree).  The Krylov basis is an
@@ -49,6 +53,7 @@ import numpy as np
 import torch
 
 from optwboundeigenval_tpu_torch.parallel import mesh as meshlib
+from optwboundeigenval_tpu_torch.utils import timing
 from optwboundeigenval_tpu_torch.utils.tree import (
     Tree,
     tree_axpy,
@@ -122,7 +127,8 @@ def power_iteration(
     lam = lam_old = n = n_old = rn = zero
     i, done = 0, False
     while i < n_iters and not done:
-        hv = matvec(v)
+        with timing.span("eigen.product"):
+            hv = matvec(v)
         lam_raw = tree_vdot(hv, v).to(sdtype)
         lam = lam_raw.abs()
         if momentum is None:
@@ -136,7 +142,7 @@ def power_iteration(
                            tree_norm(tree_axpy(1.0, r, r_old))).to(sdtype)
         stop2 = torch.where(n_old != 0, rn / n_old, inf)
         stop3 = torch.where(lam_old != 0, (lam - lam_old).abs() / lam_old, inf)
-        done = meshlib.agree(bool((n < eps) | (stop2 < eps) | (stop3 < eps)))  # host sync
+        done = meshlib.agree(timing.read("eigen.stop", (n < eps) | (stop2 < eps) | (stop3 < eps)))
         i += 1
         if done:
             # the reference breaks before the update: keep the v whose
@@ -177,7 +183,8 @@ def _flat_operator(matvec: MatVec, v0: Tree):
     wdtype = torch.promote_types(torch.float32, dtype)
 
     def mv(u: torch.Tensor) -> torch.Tensor:
-        return tree_ravel(matvec(unravel(u.to(dtype))))[0].to(wdtype)
+        with timing.span("eigen.product"):
+            return tree_ravel(matvec(unravel(u.to(dtype))))[0].to(wdtype)
 
     return flat0, unravel, wdtype, mv
 
@@ -226,7 +233,7 @@ def subspace_iteration(
         evals, U = evals[order], U[:, order]
         ritz, ritz_W = U.T @ V, U.T @ W
         resid = torch.linalg.norm(ritz_W - evals[:, None] * ritz, dim=1)
-        done = meshlib.agree(bool((resid < eps).all()))  # host sync
+        done = meshlib.agree(timing.read("eigen.stop", (resid < eps).all()))
         i += 1
         if not done:
             V = orthonormalize(ritz_W)
@@ -290,25 +297,26 @@ def lanczos_spectrum(
     m = int(min(m, n))
     k = int(min(k, m))
     V, alphas, betas = _lanczos_basis(mv, flat0.to(wdtype), m)
-    a, b = alphas.cpu(), betas.cpu()  # host sync
+    a, b = timing.to_host("eigen.stop", alphas), timing.to_host("eigen.stop", betas)
     evals, evecs = torch.linalg.eigh(_tridiag(a, b[:-1]))
     order = torch.argsort(-evals.abs(), stable=True)[:k]
     lam, Y = evals[order], evecs[:, order]
-    ritz = (V.T @ Y.to(V.device)).T
+    ritz = (V.T @ timing.to_device("eigen.h2d", Y, V.device)).T
     ritz = ritz / torch.clamp_min(torch.linalg.norm(ritz, dim=1, keepdim=True), 1e-30)
-    lam_dev = lam.to(V.device)
+    lam_dev = timing.to_device("eigen.h2d", lam, V.device)
     if explicit_residual:
         W = torch.stack([mv(r) for r in ritz])
         resid = torch.linalg.norm(W - lam_dev[:, None] * ritz, dim=1)
         iters = m + k
     else:
-        resid = (b[-1].abs() * Y[-1, :].abs()).to(V.device)
+        resid = timing.to_device("eigen.h2d", b[-1].abs() * Y[-1, :].abs(), V.device)
         iters = m
     # row j + 1 of T is live iff beta_j > 0; a pair whose mass sits on
     # dead rows is a spurious zero
     row_live = torch.cat([torch.ones(1, dtype=torch.bool), b[:-1] > 0])
     dead = ((Y ** 2) * (~row_live)[:, None].to(Y.dtype)).sum(dim=0) > 0.5
-    resid = torch.where(dead.to(V.device), torch.full_like(resid, math.inf), resid)
+    resid = torch.where(timing.to_device("eigen.h2d", dead, V.device),
+                        torch.full_like(resid, math.inf), resid)
     return SubspaceResult(eigenvalues=lam_dev, V=ritz, resid=resid, iters=iters)
 
 
@@ -330,7 +338,7 @@ def lanczos_dominant(
     n = flat0.numel()
     m = int(min(m, n))
     V, alphas, betas = _lanczos_basis(mv, flat0.to(wdtype), m)
-    a, b = alphas.cpu(), betas.cpu()  # host sync
+    a, b = timing.to_host("eigen.stop", alphas), timing.to_host("eigen.stop", betas)
     T = _tridiag(a, b[:-1])
     evals, evecs = torch.linalg.eigh(T)
     idx = int(torch.argmax(evals.abs()))
@@ -340,18 +348,18 @@ def lanczos_dominant(
         lam_prev = float(torch.linalg.eigvalsh(T[:m - 1, :m - 1]).abs().max())
         if lam_prev > 0:
             dlam_rel = float((lam.abs() - lam_prev).abs() / lam_prev)
-    v_flat = _unit(V.T @ y.to(V.device))
-    est = b[-1].abs() * y[-1].abs()
+    v_flat = _unit(V.T @ timing.to_device("eigen.h2d", y, V.device))
+    est = timing.to_device("eigen.h2d", b[-1].abs() * y[-1].abs(), V.device)
+    lam_dev = timing.to_device("eigen.h2d", lam, V.device)
     if explicit_residual:
-        r = mv(v_flat) - lam.to(V.device) * v_flat
+        r = mv(v_flat) - lam_dev * v_flat
         norm = torch.sqrt(torch.dot(r, r))
         iters = m + 1
     else:
-        norm, iters = est.to(V.device), m
-    converged = meshlib.agree(bool(norm < eps) or dlam_rel < eps)
-    return PowerIterResult(rho=lam.abs().to(V.device), v=unravel(v_flat.to(flat0.dtype)),
-                           norm=norm, res_change=est.to(V.device), iters=iters,
-                           converged=converged)
+        norm, iters = est, m
+    converged = meshlib.agree(timing.read("eigen.stop", norm < eps) or dlam_rel < eps)
+    return PowerIterResult(rho=lam_dev.abs(), v=unravel(v_flat.to(flat0.dtype)),
+                           norm=norm, res_change=est, iters=iters, converged=converged)
 
 
 def lanczos_dominant_adaptive(
@@ -384,7 +392,7 @@ def lanczos_dominant_adaptive(
     j, done = 0, False
     while j < m_max and not done:
         w, alpha, beta = _lanczos_step(mv, V, j, q, q_prev, beta_prev)
-        alpha_h, beta_h = torch.stack([alpha, beta]).cpu()  # host sync
+        alpha_h, beta_h = timing.to_host("eigen.stop", torch.stack([alpha, beta]))
         live = meshlib.agree(bool(beta_h > 1e-12))
         beta_rec = beta_h if live else torch.zeros_like(beta_h)
         q_prev, q = q, (w / torch.clamp_min(beta, 1e-30) if live else torch.zeros_like(w))
@@ -404,10 +412,12 @@ def lanczos_dominant_adaptive(
         lam_prev, lam = lam, lam_j
         done = meshlib.agree(bool(est < eps) or (j >= 1 and bool(dlam_rel < eps)) or not live)
         j += 1
-    v_flat = _unit(V.T @ y.to(dev))
-    r = mv(v_flat) - lam.to(dev) * v_flat
-    return PowerIterResult(rho=lam.abs().to(dev), v=unravel(v_flat.to(flat0.dtype)),
-                           norm=torch.sqrt(torch.dot(r, r)), res_change=est.to(dev),
+    v_flat = _unit(V.T @ timing.to_device("eigen.h2d", y, dev))
+    lam_dev = timing.to_device("eigen.h2d", lam, dev)
+    r = mv(v_flat) - lam_dev * v_flat
+    return PowerIterResult(rho=lam_dev.abs(), v=unravel(v_flat.to(flat0.dtype)),
+                           norm=torch.sqrt(torch.dot(r, r)),
+                           res_change=timing.to_device("eigen.h2d", est, dev),
                            iters=j + 1, converged=done)
 
 

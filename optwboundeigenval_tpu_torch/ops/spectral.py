@@ -8,7 +8,8 @@
 * ``p = grad f + mu * grad g`` (opt.py:639).
 
 The JAX ``lax.cond`` gate becomes a Python ``if`` on ``g > 0`` (one
-host sync), so the third-order pass is skipped when the penalty is off.
+host sync, ``spectral.gate`` in ``utils/timing.py``), so the third-order
+pass (the span ``vghv.pass``) is skipped when the penalty is off.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from optwboundeigenval_tpu_torch.ops.curvature import (
     vghv_microbatched,
 )
 from optwboundeigenval_tpu_torch.parallel import mesh as meshlib
+from optwboundeigenval_tpu_torch.utils import timing
 from optwboundeigenval_tpu_torch.utils.tree import (
     Tree,
     tree_axpy,
@@ -73,14 +75,15 @@ def penalty_and_grad(
     """``g`` and ``grad g`` with the reference's gating; ``num_micro > 1``
     micro-batches the third-order pass."""
     g = penalty(rho, K, Kmin)
-    if not meshlib.agree(bool(g > 0)):  # host sync
+    if not meshlib.agree(timing.read("spectral.gate", g > 0)):
         z = tree_zeros_like(params)
         return SpectralGrad(g=g, grad_g=z, grad_rho=z)
-    if num_micro > 1:
-        gr = vghv_microbatched(loss_fn, params, batch, v, num_micro)
-    else:
-        gr = vghv(loss_fn, params, batch, v)
-    gr = clip_by_norm(gr, gradg_clip)
+    with timing.span("vghv.pass"):
+        if num_micro > 1:
+            gr = vghv_microbatched(loss_fn, params, batch, v, num_micro)
+        else:
+            gr = vghv(loss_fn, params, batch, v)
+        gr = clip_by_norm(gr, gradg_clip)
     return SpectralGrad(g=g, grad_g=tree_scale(penalty_sign(rho, K), gr),
                         grad_rho=gr)
 

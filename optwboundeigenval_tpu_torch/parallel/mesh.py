@@ -55,6 +55,8 @@ from typing import Any, Dict, Optional
 import torch
 import torch.distributed as dist
 
+from optwboundeigenval_tpu_torch.utils import timing
+
 _ACTIVE = contextvars.ContextVar("mesh", default=(None, None))
 
 
@@ -263,9 +265,9 @@ def agree(flag: bool) -> bool:
     mesh = current()
     if mesh is None:
         return bool(flag)
-    t = torch.tensor([1 if flag else 0], dtype=torch.int32, device=mesh.device)
+    t = timing.to_device("mesh.agree", [1 if flag else 0], mesh.device, torch.int32)
     dist.all_reduce(t, op=dist.ReduceOp.MIN)
-    return bool(t.item())
+    return bool(timing.read("mesh.agree", t)[0])
 
 
 def global_rows(n_local: int):

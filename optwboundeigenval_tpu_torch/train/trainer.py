@@ -44,6 +44,22 @@ dicts of tensors.  Entry points run on the card: ``device=None`` means
 ``cuda``, and a machine without one raises; pass ``device="cpu"`` to run
 on the CPU.
 
+Measurement (``utils/timing.py``; off unless a caller records, and then
+host clock stamps alone, on the clock of ``torch.profiler``'s events):
+the spans ``step`` (a ``train_step``, or a step of a ``scan_steps``
+chunk) and ``audit.batch`` (a batch of ``rho_test`` or
+``rho_test_fused``) open units; inside them ``gradient``,
+``eigensolver`` with one ``eigen.product`` a product, ``vghv.pass``,
+``optimizer`` and ``bn``; and a sync span and count at each host
+synchronisation (``batch.h2d`` in ``put_batch`` for each host array,
+``eigen.stop``, ``spectral.gate``, ``audit.row``, ``step.fetch``, and
+under a mesh ``mesh.agree``, ``mesh.weight`` and ``norm.count``).  A DenseNet step with
+a host ``w`` and ``fetch=False`` synchronises ``2 + pow_iters`` times, an
+audit batch ``2 + iters``.  ``timers``, the verbose log's stage times:
+``G`` (the steps) and ``Test`` (the epoch-end loss) on the device, CUDA
+events on the card; ``Iteration``, the epoch's wall time on the host,
+after the epoch's reads.
+
 Execution knobs (JAX trainer lines 241-288), each leaving the trajectory
 as it is:
 
@@ -65,11 +81,13 @@ as it is:
   donation; as in JAX a fetched step whose norms are not finite then
   commits anyway (recovery is the checkpoint reload), and the
   ``defer_metrics`` epoch-start snapshot is a clone.
-* ``mem_track``: the running maximum of ``torch.cuda.memory_allocated``
-  after each step (0 on the CPU), printed as the JAX trainer prints it.
+* ``mem_track``: the running maximum of ``torch.cuda.max_memory_allocated``
+  read after each step, so the peak inside a step counts (0 on the CPU;
+  the peak is never reset here), printed as the JAX trainer prints it.
 * ``profile_dir``/``profile_epoch``: that epoch runs under
-  ``torch.profiler`` (CPU and, on the card, CUDA activity) and its Chrome
-  trace goes to ``<profile_dir>/<header2>_epoch<i>.json``.
+  ``utils/timing.trace`` (``torch.profiler``, CPU and, on the card, CUDA
+  activity, with the spans below annotated) and its Chrome trace goes to
+  ``<profile_dir>/<header2>_epoch<i>.json``.
 * ``mesh`` (``parallel/mesh.py``): data parallelism over a process
   group.  Each rank's batches are its rows of the global batch, the
   state is broadcast from rank 0 at ``init_state``, ``resume`` and
@@ -108,7 +126,7 @@ from optwboundeigenval_tpu_torch.parallel.sharding import Sharded, gather_params
 from optwboundeigenval_tpu_torch.train import checkpoints
 from optwboundeigenval_tpu_torch.train.task import Task
 from optwboundeigenval_tpu_torch.utils.precision import host
-from optwboundeigenval_tpu_torch.utils.timing import Timers
+from optwboundeigenval_tpu_torch.utils import timing
 from optwboundeigenval_tpu_torch.utils.tree import (
     tree_axpy,
     tree_norm,
@@ -406,7 +424,7 @@ class SpectralTrainer:
         self.mean_pow_iters = float("nan")
         self._h_hist: List[float] = []
         self._resume_epoch = 0
-        self.timers = Timers()
+        self.timers = timing.Timers(self.device)
 
     # ------------------------------------------------------------------
     # state
@@ -464,12 +482,13 @@ class SpectralTrainer:
         return meshlib.broadcast_object(obj, self.mesh)
 
     def mem_check(self) -> int:
-        """The running maximum of the device memory allocated
-        (``torch.cuda.memory_allocated``, XLA's ``bytes_in_use``; 0 on the
-        CPU), printed when it grows (opt.py:318-322)."""
+        """The running maximum of the device memory allocated, in-step
+        peaks included (``torch.cuda.max_memory_allocated``, never reset
+        here; XLA's ``peak_bytes_in_use``; 0 on the CPU), printed when it
+        grows (opt.py:318-322)."""
         if not self.mem_track:
             return self.mem_max
-        used = (torch.cuda.memory_allocated(self.device)
+        used = (torch.cuda.max_memory_allocated(self.device)
                 if self.device.type == "cuda" else 0)
         if used > self.mem_max:
             self.mem_max = used
@@ -483,8 +502,11 @@ class SpectralTrainer:
         return sum(sh.numel(k, p) if sh else p.numel() for k, p in self.params.items())
 
     def put_batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-        """Batch (numpy arrays or tensors) to tensors on the trainer's device."""
-        return {k: torch.as_tensor(v, device=self.device) for k, v in batch.items()}
+        """Batch (numpy arrays or tensors) to tensors on the trainer's
+        device: each entry not already there is a blocking copy, a host
+        synchronisation (``batch.h2d``)."""
+        return {k: v if isinstance(v, torch.Tensor) and _same_device(v.device, self.device)
+                else timing.to_device("batch.h2d", v, self.device) for k, v in batch.items()}
 
     def _mu_now(self) -> float:
         return float(self.mu(self.i) if callable(self.mu) else self.mu)
@@ -508,9 +530,10 @@ class SpectralTrainer:
         or under ``remat`` a map that holds only ``params`` and ``batch``
         and recomputes forward and gradient per HVP, as
         ``jax.linearize(grad(jax.checkpoint(loss)))`` does."""
-        if self.remat:
-            return curvature.recompute_hvp(loss_fn, params, batch)
-        return curvature.linearize_hvp(loss_fn, params, batch)
+        with timing.span("gradient"):
+            if self.remat:
+                return curvature.recompute_hvp(loss_fn, params, batch)
+            return curvature.linearize_hvp(loss_fn, params, batch)
 
     def _step_body(self, params, model_state, opt_state, v, batch, mu,
                    precond_state=None, key=None):
@@ -521,8 +544,9 @@ class SpectralTrainer:
         if self.hvp_micro > 1:
             # memory-bounded path: O(B / micro) activations per pass, and
             # nothing kept between passes
-            grads_f = curvature.grad_microbatched(loss_fn, params, batch,
-                                                  self.hvp_micro)
+            with timing.span("gradient"):
+                grads_f = curvature.grad_microbatched(loss_fn, params, batch,
+                                                      self.hvp_micro)
             hvp_fn = lambda u: curvature.hvp_microbatched(
                 loss_fn, params, batch, u, self.hvp_micro)
         else:
@@ -554,8 +578,9 @@ class SpectralTrainer:
                 "gradg_norm": zero,
             }
 
-        new_params, new_opt_state = self._opt_step(
-            direction, opt_state, params, **self._opt_kwargs(loss_fn, model_state, batch))
+        with timing.span("optimizer"):
+            new_params, new_opt_state = self._opt_step(
+                direction, opt_state, params, **self._opt_kwargs(loss_fn, model_state, batch))
         if self.optimizer.wants_err:
             # the closure's loss and error % (optim.py:24)
             metrics["opt_mf"] = new_opt_state["mf"]
@@ -625,12 +650,13 @@ class SpectralTrainer:
         precond = None
         if self.precond_builder is not None and precond_state is not None:
             precond = lambda r: self.precond_builder(precond_state, r)
-        return eigen.estimate_dominant_eig(
-            hvp_fn, v0, eps=self.pow_iter_eps, max_iter=self.max_pow_iter,
-            alpha=self.pow_iter_alpha, precond=precond,
-            ignore_bad_vals=self.ignore_bad_vals, momentum=self.pow_iter_momentum,
-            method=self.eigensolver, lanczos_m=self.lanczos_m,
-        )
+        with timing.span("eigensolver"):
+            return eigen.estimate_dominant_eig(
+                hvp_fn, v0, eps=self.pow_iter_eps, max_iter=self.max_pow_iter,
+                alpha=self.pow_iter_alpha, precond=precond,
+                ignore_bad_vals=self.ignore_bad_vals, momentum=self.pow_iter_momentum,
+                method=self.eigensolver, lanczos_m=self.lanczos_m,
+            )
 
     def _refresh_precond(self, batch):
         """LOBPCG: refit the K-FAC factors at the current parameters every
@@ -651,7 +677,8 @@ class SpectralTrainer:
     def _advance_stats(self, params, model_state, batch, key=None):
         if not self.task.has_batch_stats:
             return model_state
-        return self.task.train_loss(params, model_state, batch, key)[1]
+        with timing.span("bn"):
+            return self.task.train_loss(params, model_state, batch, key)[1]
 
     def _kept(self, old, new):
         """``new``, under ``donate`` in the storage of ``old``."""
@@ -680,29 +707,31 @@ class SpectralTrainer:
             self.init_state()
         if mu is None:
             mu = self._mu_now()
-        dev_batch = self.put_batch(batch)
-        key = self._dropout_key()
-        self._refresh_precond(dev_batch)
-        out = self._step_body(self.params, self.model_state, self.opt_state,
-                              self.v, dev_batch, float(mu), self._precond_state, key)
-        new_params, new_model_state, new_opt_state, new_v, metrics = out
-        if not fetch:
-            self._commit(new_params, new_model_state, new_opt_state, new_v)
+        with timing.unit("step"):
+            dev_batch = self.put_batch(batch)
+            key = self._dropout_key()
+            self._refresh_precond(dev_batch)
+            out = self._step_body(self.params, self.model_state, self.opt_state,
+                                  self.v, dev_batch, float(mu), self._precond_state, key)
+            new_params, new_model_state, new_opt_state, new_v, metrics = out
+            if not fetch:
+                self._commit(new_params, new_model_state, new_opt_state, new_v)
+                return metrics
+            # one device-to-host transfer for all tensor metrics
+            keys = [k for k, m in metrics.items() if isinstance(m, torch.Tensor)]
+            values = timing.read("step.fetch",
+                                 torch.stack([metrics[k].to(torch.float64) for k in keys]))
+            metrics.update(zip(keys, values))
+            step_ok = meshlib.agree(bool(np.isfinite(metrics["gradf_norm"])
+                                         and np.isfinite(metrics["gradg_norm"])))
+            if step_ok or self.donate:
+                self._commit(new_params, new_model_state, new_opt_state, new_v)
+            if step_ok:
+                self.rho = metrics["rho"]
+                self.norm = metrics["norm"]
+                self.g = metrics["g"]
+            metrics["step_ok"] = step_ok
             return metrics
-        # one device-to-host transfer for all tensor metrics
-        keys = [k for k, m in metrics.items() if isinstance(m, torch.Tensor)]
-        values = torch.stack([metrics[k].to(torch.float64) for k in keys]).tolist()
-        metrics.update(zip(keys, values))
-        step_ok = meshlib.agree(bool(np.isfinite(metrics["gradf_norm"])
-                                     and np.isfinite(metrics["gradg_norm"])))
-        if step_ok or self.donate:
-            self._commit(new_params, new_model_state, new_opt_state, new_v)
-        if step_ok:
-            self.rho = metrics["rho"]
-            self.norm = metrics["norm"]
-            self.g = metrics["g"]
-        metrics["step_ok"] = step_ok
-        return metrics
 
     def _rho_step(self, batch):
         """comp_rho without an optimizer step (epoch-end ``g``, rho_test):
@@ -735,16 +764,8 @@ class SpectralTrainer:
         if not (self.profile_dir and self.i == self.profile_epoch):
             self._iter_epoch_body(train_loader)
             return
-        activities = [torch.profiler.ProfilerActivity.CPU]
-        if self.device.type == "cuda":
-            activities.append(torch.profiler.ProfilerActivity.CUDA)
-        with torch.profiler.profile(activities=activities) as prof:
+        with timing.trace(path=self.trace_file(self.i)):
             self._iter_epoch_body(train_loader)
-        os.makedirs(self.profile_dir, exist_ok=True)
-        path = self.trace_file(self.i)
-        prof.export_chrome_trace(path)
-        if not os.path.isfile(path):  # the exporter logs a failure and returns
-            raise RuntimeError(f"torch.profiler wrote no trace to {path}")
 
     def _iter_epoch_body(self, train_loader) -> None:
         mu = self._mu_now()
@@ -848,8 +869,8 @@ class SpectralTrainer:
         """``sum(w)`` of a batch, over the ranks of an active mesh."""
         if meshlib.current() is None:
             return float(np.sum(w))
-        return float(meshlib.all_sum(torch.tensor(float(np.sum(w)), dtype=torch.float64,
-                                                  device=self.device)))
+        total = timing.to_device("mesh.weight", float(np.sum(w)), self.device, torch.float64)
+        return float(timing.read("mesh.weight", meshlib.all_sum(total)))
 
     # ------------------------------------------------------------------
     # chunks of scan_steps batches (JAX trainer lines 1063-1130)
@@ -896,10 +917,11 @@ class SpectralTrainer:
         with self.timers("G"):
             for i, key in enumerate(keys):
                 batch = {k: t[i] for k, t in stacked.items()}
-                *state, metrics = self._step_body(self.params, self.model_state,
-                                                  self.opt_state, self.v, batch,
-                                                  float(mu), None, key)
-                self._commit(*state)
+                with timing.unit("step"):
+                    *state, metrics = self._step_body(self.params, self.model_state,
+                                                      self.opt_state, self.v, batch,
+                                                      float(mu), None, key)
+                    self._commit(*state)
                 gradf.append(metrics["gradf_norm"])
                 gradg.append(metrics["gradg_norm"])
                 self.epoch_pow_iters.append(metrics["pow_iters"])
@@ -1204,16 +1226,23 @@ class SpectralTrainer:
             loader = _as_loader((x, y), self.batch_size)
         rows, sizes = [], []
         for j, data in enumerate(loader):
-            batch = self.put_batch(data)
-            t0 = time.perf_counter()
-            eig, self.model_state = self._rho_step(batch)
-            rho, norm, res = torch.stack(
-                [eig.rho, eig.norm, eig.res_change]).to(torch.float64).tolist()
-            dt = time.perf_counter() - t0
-            self.v = eig.v
-            rows.append([j, rho, norm, eig.iters, res, dt])
-            sizes.append(self._global_weight(data["w"]))
+            with timing.unit("audit.batch"):
+                batch = self.put_batch(data)
+                t0 = time.perf_counter()
+                eig, self.model_state = self._rho_step(batch)
+                rho, norm, res = self._eig_row(eig)
+                dt = time.perf_counter() - t0
+                self.v = eig.v
+                rows.append([j, rho, norm, eig.iters, res, dt])
+                sizes.append(self._global_weight(data["w"]))
         return self._rho_csv(rows, sizes)
+
+    @staticmethod
+    def _eig_row(eig):
+        """``rho``, ``norm`` and ``res_change`` of an audit batch on the
+        host, in one read."""
+        return timing.read("audit.row", torch.stack(
+            [eig.rho, eig.norm, eig.res_change]).to(torch.float64))
 
     def _rho_csv(self, rows, sizes):
         arr = np.asarray(rows, dtype=float)
@@ -1243,15 +1272,15 @@ class SpectralTrainer:
             loader = _as_loader((x, y), self.batch_size)
         rows, sizes = [], []
         for j, data in enumerate(loader):
-            batch = self.put_batch(data)
-            t0 = time.perf_counter()
-            _, hvp_fn = self._linearize(self._loss_fn(self.model_state, self._dropout_key()),
-                                        self.params, batch)
-            eig = self._eig(hvp_fn, tree_uniform_like(self.params))
-            rho, norm, res = torch.stack(
-                [eig.rho, eig.norm, eig.res_change]).to(torch.float64).tolist()
-            rows.append([j, rho, norm, eig.iters, res, time.perf_counter() - t0])
-            sizes.append(self._global_weight(data["w"]))
+            with timing.unit("audit.batch"):
+                batch = self.put_batch(data)
+                t0 = time.perf_counter()
+                _, hvp_fn = self._linearize(
+                    self._loss_fn(self.model_state, self._dropout_key()), self.params, batch)
+                eig = self._eig(hvp_fn, tree_uniform_like(self.params))
+                rho, norm, res = self._eig_row(eig)
+                rows.append([j, rho, norm, eig.iters, res, time.perf_counter() - t0])
+                sizes.append(self._global_weight(data["w"]))
         return self._rho_csv(rows, sizes)
 
     @_on_mesh

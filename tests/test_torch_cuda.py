@@ -5,6 +5,8 @@ runs on a machine with PyTorch alone:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -654,3 +656,104 @@ def test_bfloat16_densenet_step_on_the_card(cuda):
     assert all(t.dtype == torch.float32 for t in tr.model_state.values())
     out = tr.task.predict(tr.params, tr.model_state, tr.put_batch(batch))
     assert out.dtype == torch.bfloat16 and out.is_cuda
+
+
+def _dn40(tmp_path, batch=16):
+    """The DenseNet-40 recipe's trainer (``remat``, SGD, ``pow_iter_eps``
+    0.05) on the card at ``batch``, and batches with ``x`` and ``y`` on the
+    card and a host ``w``, as the benchmark hands them."""
+    from optwboundeigenval_tpu_torch.configs import cifar10_densenet_mu0_01_K0 as cfg
+    from optwboundeigenval_tpu_torch.train import driver
+
+    tr = driver.build_trainer(cfg.options(device="cuda", augment=False, batch_size=batch,
+                                          log_dir=str(tmp_path / "logs"),
+                                          model_dir=str(tmp_path / "models")))
+    tr.init_state()
+    g = torch.Generator(device="cuda").manual_seed(17)
+    batches = [{"x": torch.randn((batch, 32, 32, 3), generator=g, device="cuda"),
+                "y": torch.randint(0, 10, (batch,), generator=g, device="cuda"),
+                "w": np.ones(batch, np.float32)} for _ in range(3)]
+    return tr, batches
+
+
+def _synchronising_calls(run):
+    """``run()`` under ``torch.cuda.set_sync_debug_mode("warn")`` with the
+    program's recording on: the warnings of synchronising calls, and the
+    recording."""
+    import warnings
+
+    from optwboundeigenval_tpu_torch.utils import timing
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught, timing.record() as rec:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            run()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return [w for w in caught if "called a synchronizing CUDA operation" in str(w.message)], rec
+
+
+def test_every_synchronisation_is_a_sync_span(cuda, tmp_path):
+    """One DenseNet-40 step and one audit batch on the card: the card's own
+    count of synchronising calls equals the program's ``host_syncs``, so
+    none happens outside a sync span (``1 + products + 1`` each)."""
+    tr, batches = _dn40(tmp_path)
+    tr.train_step(batches[0], fetch=False)  # first use of cuDNN and cuBLAS
+    out = {}
+    warned, rec = _synchronising_calls(
+        lambda: out.update(tr.train_step(batches[1], fetch=False)))
+    assert len(warned) == sum(rec.syncs.values()), ([str(w.message) for w in warned], rec.syncs)
+    assert rec.syncs == {"batch.h2d": 1, "eigen.stop": out["pow_iters"], "spectral.gate": 1}
+    warned, rec = _synchronising_calls(lambda: tr.rho_test(loader=batches[2:]))
+    assert len(warned) == sum(rec.syncs.values()), ([str(w.message) for w in warned], rec.syncs)
+    assert set(rec.syncs) == {"batch.h2d", "eigen.stop", "audit.row"}
+    assert rec.syncs["batch.h2d"] == rec.syncs["audit.row"] == 1
+
+
+def test_spans_share_the_device_trace_clock(cuda):
+    """A clock marker: after a synchronise, a span around a sleep kernel,
+    under the profiler; the kernel starts after the span opens (both on
+    ``time.time_ns``'s clock) and within 5 ms of it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+
+    from optwboundeigenval_tpu_torch.utils import timing
+
+    torch.cuda._sleep(1000)  # load the kernel before the marker
+    offsets = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[ProfilerActivity.CUDA]) as prof:
+            with timing.record() as rec:
+                with timing.span("marker"):
+                    torch.cuda._sleep(1_000_000)
+            torch.cuda.synchronize()
+        starts = [e.start_ns() if hasattr(e, "start_ns") else 1000 * e.start_us()
+                  for e in prof.profiler.kineto_results.events()
+                  if e.device_type() == DeviceType.CUDA]
+        assert len(starts) == 1
+        offsets.append(starts[0] - rec.spans[0].start_ns)
+    print(f"sleep kernel start less the span's start: {[o / 1e3 for o in offsets]} us")
+    assert all(0 <= o <= 5_000_000 for o in offsets), offsets
+
+
+def test_timers_and_mem_check_read_the_device(cuda, tmp_path):
+    """``Timers`` on the card time a stage's device work, not its enqueue;
+    ``mem_check`` sees a peak inside a step that is freed before it reads."""
+    from optwboundeigenval_tpu_torch.utils import timing
+
+    timers = timing.Timers(cuda)
+    torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with timers("G"):
+        torch.cuda._sleep(100_000_000)  # about 50 ms at 2 GHz
+    enqueue = time.perf_counter() - t0
+    assert timers.totals["G"] > 0.02 > enqueue
+    tr, _ = _dn40(tmp_path, batch=4)
+    tr.mem_track = True
+    big = torch.empty(256 << 20, dtype=torch.uint8, device=cuda)
+    del big
+    assert tr.mem_check() >= 256 << 20
