@@ -15,7 +15,10 @@ A step (``_step_body``, reference ``iter()`` body, opt.py:580-763):
    inverse (``ops/kfac.py``), whose factors are refitted every
    ``kfac_batch`` batches at the pre-step parameters (``_refresh_precond``);
 3. the penalty ``g`` and, when ``g > 0``, ``grad g`` from the vGHv pass,
-   with the HVP map and its graph dropped first;
+   with the HVP map and its graph dropped first; on one CUDA device, on
+   the whole batch and without dropout, the pass is a CUDA graph from its
+   signature's second pass on (``spectral.VghvGraphs``, one cache a
+   trainer, its memory pool held for the trainer's life);
 4. ``p = grad f + mu * grad g`` and the optimizer step, with the JAX
    package's protocol (``grad_fn``, ``rng``, ``stats_fn``, ``err_fn``;
    ``optim/api.py``) for SAM, Entropy-SGD and K-FAC;
@@ -50,7 +53,9 @@ the spans ``step`` (a ``train_step``, or a step of a ``scan_steps``
 chunk) and ``audit.batch`` (a batch of ``rho_test`` or
 ``rho_test_fused``) open units; inside them ``gradient``,
 ``eigensolver`` with one ``eigen.product`` a product, ``vghv.pass``,
-``optimizer`` and ``bn``; and a sync span and count at each host
+``optimizer`` and ``bn``, with the vGHv pass's route (``vghv.eager``,
+``vghv.capture`` or ``vghv.replay``) a counted span inside ``vghv.pass``;
+and a sync span and count at each host
 synchronisation (``batch.h2d`` in ``put_batch`` for each host array,
 ``eigen.stop``, ``spectral.gate``, ``audit.row``, ``step.fetch``, and
 under a mesh ``mesh.agree``, ``mesh.weight`` and ``norm.count``).  A DenseNet step with
@@ -425,6 +430,7 @@ class SpectralTrainer:
         self._h_hist: List[float] = []
         self._resume_epoch = 0
         self.timers = timing.Timers(self.device)
+        self._vghv_graphs = spectral.VghvGraphs(task)
 
     # ------------------------------------------------------------------
     # state
@@ -560,7 +566,8 @@ class SpectralTrainer:
             sg = spectral.penalty_and_grad(
                 loss_fn, params, batch, eig.v, eig.rho, K=self.K,
                 Kmin=self.Kmin, gradg_clip=self.gradg_clip,
-                num_micro=self.hvp_micro,
+                num_micro=self.hvp_micro, graphs=self._vghv_graphs,
+                model_state=model_state, key=key,
             )
             direction = spectral.regularized_direction(grads_f, sg.grad_g, mu)
             new_v = eig.v

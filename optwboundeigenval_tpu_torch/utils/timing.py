@@ -36,6 +36,12 @@ a transfer, under a site name (``batch.h2d``, ``eigen.stop``,
 span with ``sync=True`` and adds one to :attr:`Recording.syncs` under its
 site.  They are counted on every device, so a CPU run counts what the
 card would synchronise.
+
+Routes.  Where a layer can take one of several routes, a span of the
+route's name opened by :func:`counted` adds one to
+:attr:`Recording.counts` under that name: the vGHv pass's ``vghv.eager``,
+``vghv.capture`` (a CUDA graph captured, then run once) and
+``vghv.replay`` (``ops/spectral.py``).
 """
 
 from __future__ import annotations
@@ -118,18 +124,19 @@ class Span:
 
 class Recording:
     """What one :func:`record` block recorded: ``spans`` in the order they
-    opened, ``syncs`` ``{site: host synchronisations}`` and ``units``, the
-    units opened."""
+    opened, ``syncs`` ``{site: host synchronisations}``, ``counts``
+    ``{route: times taken}`` and ``units``, the units opened."""
 
     def __init__(self, annotate: bool = False):
         self.annotate = annotate
         self.spans: List[Span] = []
         self.syncs: Dict[str, int] = {}
+        self.counts: Dict[str, int] = {}
         self.units = 0
         self._open: List[int] = []
 
     @contextlib.contextmanager
-    def span(self, name: str, unit: bool = False, sync: bool = False):
+    def span(self, name: str, unit: bool = False, sync: bool = False, count: bool = False):
         parent = self._open[-1] if self._open else None
         if unit:
             number, self.units = self.units, self.units + 1
@@ -137,6 +144,8 @@ class Recording:
             number = self.spans[parent].unit if parent is not None else None
         if sync:
             self.syncs[name] = self.syncs.get(name, 0) + 1
+        if count:
+            self.counts[name] = self.counts.get(name, 0) + 1
         rec = Span(name, time.time_ns(), parent, number, sync)
         self._open.append(len(self.spans))
         self.spans.append(rec)
@@ -175,6 +184,12 @@ def unit(name: str):
     """A span that opens a new unit (a step, an audit batch)."""
     rec = _ACTIVE.get()
     return _OFF if rec is None else rec.span(name, unit=True)
+
+
+def counted(name: str):
+    """A span of the route ``name`` that counts one in ``Recording.counts``."""
+    rec = _ACTIVE.get()
+    return _OFF if rec is None else rec.span(name, count=True)
 
 
 def read(site: str, t: torch.Tensor) -> Any:

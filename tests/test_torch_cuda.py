@@ -757,3 +757,287 @@ def test_timers_and_mem_check_read_the_device(cuda, tmp_path):
     big = torch.empty(256 << 20, dtype=torch.uint8, device=cuda)
     del big
     assert tr.mem_check() >= 256 << 20
+
+
+# ---- the vGHv pass as a CUDA graph (ops/spectral.VghvGraphs) -------------------------
+#
+# cuDNN's default backward-filter algorithm (``wgrad_alg0_engine``) adds with atomics in an
+# order that changes run to run, so two eager vGHv passes on the same inputs differ at float32
+# rounding; a replay can equal the eager pass bit for bit only under deterministic algorithms.
+# cuDNN's plan cache lives as long as the process, and in the whole card suite plans chosen by
+# earlier tests served later passes under ``cudnn.deterministic`` too (two eager passes 3e-6
+# apart): so the bit-for-bit cases run in a process of their own (``_fresh``).
+
+
+def _fresh(case, tmp_path, *args):
+    """``case(tmp, *args)`` of this module in a new Python process with
+    deterministic cuDNN and TF32 off; its output on failure."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    here = Path(__file__).resolve().parent
+    code = (f"import sys; sys.path.insert(0, {str(here)!r}); import torch; "
+            "torch.backends.cudnn.deterministic = True; import test_torch_cuda as t; "
+            f"t.precision.set_tf32(False); t.{case}({str(tmp_path)!r}, *{args!r})")
+    out = subprocess.run([sys.executable, "-c", code], cwd=here.parent, capture_output=True,
+                         text=True, timeout=600)
+    print(out.stdout[-2000:])
+    assert out.returncode == 0, out.stdout[-3000:] + out.stderr[-5000:]
+
+
+def _vghv_inputs(tr, batch, g, shape=(32, 32, 3), classes=10, multilabel=False):
+    """Fresh parameters, BatchNorm buffers, a batch with ``w`` and a unit
+    ``v`` near the trainer's state, on the card."""
+    dev = tr.device
+    params = {k: p + 1e-2 * torch.randn(p.shape, generator=g, device=dev, dtype=p.dtype)
+              for k, p in tr.params.items()}
+    state = {k: b + 1e-2 * torch.rand(b.shape, generator=g, device=dev, dtype=b.dtype)
+             if b.is_floating_point() else b.clone() for k, b in tr.model_state.items()}
+    if multilabel:
+        y = (torch.rand((batch, classes), generator=g, device=dev) > 0.5).float()
+    else:
+        y = torch.randint(0, classes, (batch,), generator=g, device=dev)
+    b = {"x": torch.randn((batch, *shape), generator=g, device=dev), "y": y,
+         "w": torch.rand(batch, generator=g, device=dev) + 0.5}
+    v = {k: torch.randn(p.shape, generator=g, device=dev, dtype=p.dtype)
+         for k, p in tr.params.items()}
+    n = tree_norm(v)
+    return params, state, b, {k: t / n for k, t in v.items()}
+
+
+def _vghv(tr, inputs, graphs=None, gradg_clip=None):
+    """``grad rho`` of one vGHv pass (the gate open), through ``graphs``
+    or op by op, and the routes it counted."""
+    from optwboundeigenval_tpu_torch.ops import spectral
+    from optwboundeigenval_tpu_torch.utils import timing
+
+    params, state, b, v = inputs
+    rho = torch.ones((), device=tr.device)
+    with timing.record() as rec:
+        sg = spectral.penalty_and_grad(tr.task.loss_fn(state), params, b, v, rho, K=0.0,
+                                       gradg_clip=gradg_clip, graphs=graphs, model_state=state)
+    return sg.grad_rho, rec.counts
+
+
+def _gap(a, b) -> float:
+    return float(tree_norm(tree_sub(a, b)) / tree_norm(b))
+
+
+def _replays_equal_eager(tr, graphs, n, batch, gradg_clip=None, seed=0, loose=(), **shape):
+    """``n`` passes of one signature through ``graphs``, each on new
+    inputs (the previous ones freed first) and equal to the eager pass on
+    the same inputs bit for bit, the leaves in ``loose`` to a relative
+    1e-4; each earlier result is checked again after the next replay
+    (nothing returned aliases the graph).  Returns the routes counted."""
+    g = torch.Generator(device=tr.device).manual_seed(seed)
+    counts, kept = {}, []
+    for _ in range(n):
+        inputs = _vghv_inputs(tr, batch, g, **shape)
+        got, c = _vghv(tr, inputs, graphs, gradg_clip)
+        want, _ = _vghv(tr, inputs, None, gradg_clip)
+        del inputs
+        for k in c:
+            counts[k] = counts.get(k, 0) + c[k]
+        assert got.keys() == want.keys()
+        differ = [k for k in want if k not in loose and not torch.equal(got[k], want[k])]
+        assert not differ, (c, len(differ), differ[:8], _gap(got, want))
+        assert all(_gap({k: got[k]}, {k: want[k]}) <= 1e-4 for k in loose)
+        for old, copy in kept:
+            assert all(torch.equal(old[k], copy[k]) for k in copy)
+        kept.append((got, {k: t.clone() for k, t in got.items()}))
+    return counts
+
+
+def _dn40_graphs(tmp, batch=16):
+    from pathlib import Path
+
+    from optwboundeigenval_tpu_torch.ops import spectral
+
+    tr, _ = _dn40(Path(tmp), batch=batch)
+    return tr, spectral.VghvGraphs(tr.task)
+
+
+def _replays_case(tmp):
+    tr, graphs = _dn40_graphs(tmp)
+    counts = _replays_equal_eager(tr, graphs, 6, 16)
+    assert counts == {"vghv.eager": 1, "vghv.capture": 1, "vghv.replay": 4}, counts
+    counts = _replays_equal_eager(tr, graphs, 3, 8, seed=1)
+    assert counts == {"vghv.eager": 1, "vghv.capture": 1, "vghv.replay": 1}, counts
+    assert len(graphs._graphs) == 2 and all(graphs._graphs.values())
+    counts = _replays_equal_eager(tr, graphs, 2, 16, seed=2)
+    assert counts == {"vghv.replay": 2}, counts
+
+
+def test_vghv_graph_replays_equal_eager(cuda, tmp_path):
+    """DenseNet-40 at batch 16: over 6 passes of one signature, the first
+    runs eager, the second captures, the rest replay, and every result
+    equals the eager pass's bit for bit (the same kernels in the same
+    order on the same inputs, cuDNN's algorithms deterministic); a batch
+    of another shape runs eager once, then captures its own graph in the
+    shared pool, and the first graph still replays."""
+    _fresh("_replays_case", tmp_path)
+
+
+def test_vghv_graph_with_default_cudnn_is_within_float32_rounding(cuda, tmp_path):
+    """With cuDNN's default algorithms (the benchmark's and the recipes'
+    setting) two eager passes on the same inputs differ (DenseNet-40 at
+    batch 16: relative 3e-6 of the tree, H100); replays differ from the
+    eager pass as much, held to 2e-5."""
+    tr, graphs = _dn40_graphs(tmp_path)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    for _ in range(5):
+        inputs = _vghv_inputs(tr, 16, g)
+        got, _ = _vghv(tr, inputs, graphs)
+        want, _ = _vghv(tr, inputs, None)
+        again, _ = _vghv(tr, inputs, None)
+        print(f"graph - eager {_gap(got, want):.3g}, eager - eager {_gap(again, want):.3g}")
+        assert _gap(got, want) <= 2e-5
+
+
+def _clip_case(tmp):
+    tr, graphs = _dn40_graphs(tmp, batch=8)
+    counts = _replays_equal_eager(tr, graphs, 4, 8, gradg_clip=1e-3)
+    assert counts == {"vghv.eager": 1, "vghv.capture": 1, "vghv.replay": 2}, counts
+
+
+def test_vghv_graph_with_a_clip_replays_equal_eager(cuda, tmp_path):
+    """``gradg_clip`` is part of the signature and of the graph: a clip
+    that binds, over 4 passes."""
+    _fresh("_clip_case", tmp_path)
+
+
+def _family_case(tmp, config, shape, classes):
+    import importlib
+
+    from optwboundeigenval_tpu_torch.ops import spectral
+    from optwboundeigenval_tpu_torch.train import driver
+
+    mod = importlib.import_module(f"optwboundeigenval_tpu_torch.configs.{config}")
+    tr = driver.build_trainer(mod.options(device="cuda", batch_size=4, log_dir=f"{tmp}/logs",
+                                          model_dir=f"{tmp}/models"))
+    tr.init_state()
+    graphs = spectral.VghvGraphs(tr.task)
+    stem = [k for k in tr.params if k.startswith(("features.conv0.", "features.norm0."))]
+    counts = _replays_equal_eager(tr, graphs, 4, 4, shape=shape, classes=classes,
+                                  multilabel=config.startswith("chestxray"), loose=stem)
+    assert counts == {"vghv.eager": 1, "vghv.capture": 1, "vghv.replay": 2}, counts
+
+
+@pytest.mark.parametrize("config,shape,classes", [
+    ("forest_best", (54,), 7), ("usps_cnn_mu0_01_K0", (16, 16, 1), 10),
+    ("chestxray_mu0_01_K0", (64, 64, 3), 14)])
+def test_vghv_graph_of_each_model_family_equals_eager(cuda, tmp_path, config, shape, classes):
+    """The other models that train on one card with ``mu > 0``: ForestNet,
+    CNNUSPS and the chest x-ray DenseNet-121 (64 px, W-BCE) replay their
+    vGHv pass bit for bit as the eager pass computes it.  DenseNet-121's
+    stem (``conv0``, ``norm0``) lies under an overlapping max pool whose
+    backward adds with atomics, so there two eager passes differ at float32
+    rounding too (relative 1e-9 to 1e-8 of the tree, H100): held to 1e-4."""
+    _fresh("_family_case", tmp_path, config, shape, classes)
+
+
+def _out_of_memory_case(tmp):
+    tr, graphs = _dn40_graphs(tmp)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    first = _vghv_inputs(tr, 16, g)
+    _, counts = _vghv(tr, first, graphs)
+    assert counts == {"vghv.eager": 1}, counts
+    total = torch.cuda.get_device_properties(0).total_memory
+    begin, end = torch.cuda.CUDAGraph.capture_begin, torch.cuda.CUDAGraph.capture_end
+    capped = []
+
+    def capped_begin(self, *args, **kwargs):
+        capped.append(torch.cuda.memory_reserved())
+        torch.cuda.set_per_process_memory_fraction((capped[0] + (64 << 20)) / total)
+        return begin(self, *args, **kwargs)
+
+    def lifted_end(self, *args, **kwargs):
+        torch.cuda.set_per_process_memory_fraction(1.0)
+        return end(self, *args, **kwargs)
+
+    torch.cuda.CUDAGraph.capture_begin, torch.cuda.CUDAGraph.capture_end = capped_begin, lifted_end
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    try:
+        got, counts = _vghv(tr, first, graphs)
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0)
+        torch.cuda.CUDAGraph.capture_begin, torch.cuda.CUDAGraph.capture_end = begin, end
+    assert len(capped) == 1 and counts == {"vghv.capture": 1, "vghv.eager": 1}, counts
+    assert list(graphs._graphs.values()) == [None]
+    # nothing of the capture is held but what a stream keeps once used:
+    # cuBLAS's workspaces for the capture stream, 32 MiB for each of the
+    # two threads that multiply (the caller's and autograd's)
+    result = sum(t.numel() * t.element_size() for t in got.values())
+    print(f"held after the failed capture: {torch.cuda.memory_allocated() - held - result} B")
+    assert torch.cuda.memory_allocated() <= held + result + (80 << 20)
+    want, _ = _vghv(tr, first, None)
+    assert all(torch.equal(got[k], want[k]) for k in want)
+    counts = _replays_equal_eager(tr, graphs, 2, 16, seed=4)
+    assert counts == {"vghv.eager": 2}, counts
+
+
+def test_vghv_capture_out_of_memory_stays_eager(cuda, tmp_path):
+    """A capture forced out of memory (the process capped at what it holds
+    as the capture begins, the cap lifted as it ends) frees what it took
+    and leaves its signature eager, with the eager result; later passes
+    of the signature stay eager."""
+    _fresh("_out_of_memory_case", tmp_path)
+
+
+@pytest.mark.parametrize("case", ["dropout", "micro"])
+def test_vghv_graph_never_captures_dropout_or_micro_batches(cuda, case):
+    """A dropout task (a key a step) and ``hvp_micro=2`` (K1) train op by op
+    on the card: every step's pass counts ``vghv.eager``."""
+    from optwboundeigenval_tpu_torch.utils import timing
+
+    if case == "dropout":
+        tr = _dropout_trainer("cuda")
+    else:
+        tr = SpectralTrainer(Task(model=DenseNet3(depth=10, growth_rate=4), has_batch_stats=True),
+                             sgd(0.1, momentum=0.9), mu=0.01, K=0.0, pow_iter_eps=0.05,
+                             max_pow_iter=20, hvp_micro=2)
+    counts = {}
+    for _ in range(3):
+        with timing.record() as rec:
+            m = tr.train_step(_batch8())
+        assert m["step_ok"] and m["g"] > 0
+        for k, c in rec.counts.items():
+            counts[k] = counts.get(k, 0) + c
+    assert counts == {"vghv.eager": 3} and not tr._vghv_graphs._graphs
+
+
+def _trainer_case(tmp):
+    from pathlib import Path
+
+    from optwboundeigenval_tpu_torch.utils import timing
+
+    runs = {}
+    for graphed in (True, False):
+        tr, batches = _dn40(Path(tmp) / str(graphed))
+        if not graphed:
+            tr._vghv_graphs = None
+        routes, syncs = [], []
+        for i in range(4):
+            with timing.record() as rec:
+                m = tr.train_step(batches[i % len(batches)], fetch=False)
+                products = int(m["pow_iters"])
+            routes.append(rec.counts)
+            syncs.append((rec.syncs, products))
+        runs[graphed] = (tr.params, routes, syncs)
+    (pg, rg, sg), (pe, re_, _) = runs[True], runs[False]
+    assert rg == [{"vghv.eager": 1}, {"vghv.capture": 1}, {"vghv.replay": 1},
+                  {"vghv.replay": 1}], rg
+    assert re_ == [{"vghv.eager": 1}] * 4, re_
+    for s, n in sg:
+        assert s == {"batch.h2d": 1, "eigen.stop": n, "spectral.gate": 1}, s
+    assert all(torch.equal(pg[k], pe[k]) for k in pe), _gap(pg, pe)
+
+
+def test_vghv_graph_through_the_trainer(cuda, tmp_path):
+    """Four DenseNet-40 steps at batch 16 with the graph and without it
+    (``_vghv_graphs`` None) from one state: the same parameters bit for
+    bit, the routes eager, capture, replay, replay, and a replayed step
+    synchronises as an eager one does (``1 + products + 1``)."""
+    _fresh("_trainer_case", tmp_path)
